@@ -1,0 +1,110 @@
+"""QuantCtx — the single integration point between models and quantization
+(port of ``repro/core/context.py``).
+
+Every linear in the model routes through ``ctx.linear``. Depending on
+``mode`` the same model code runs:
+
+  fp       plain full-precision math (the teacher stream, fp serving)
+  calib    record activation ranges per site (LSQ init)
+  recon    weights fake-quantized through their rounding states, activations
+           LSQ-fake-quantized; forward only here, without QDrop (what the
+           reconstruction error ``err_before``/``err_after`` reads)
+  deploy   weights are QTensor leaves; every QTensor matmul dispatches
+           through ``kernels/ops.qtensor_matmul`` under ``backend``
+
+Deploy backend policy (``kernels.ops.resolve_backend``): ``auto`` runs the
+CUDA kernels for CUDA tensors and the plain versions for CPU tensors;
+``kernel`` insists on the CUDA kernels; ``torch`` runs the plain versions.
+
+A deploy site gets the integer activation grid only when ``astates`` holds
+its exact name. The serving engine names its sites ``layers.wq`` (no layer
+index) while astates are keyed ``layers.<i>.wq``, so it serves W8A8 and
+W4A8 checkpoints as W8A16 and W4A16 — the reference does the same, and the
+port mirrors it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core import lsq
+from repro_torch.core.qtensor import QTensor, dequantize_qtensor
+from repro_torch.core.quant_config import QuantRecipe, SitePlan
+
+MODES = ("fp", "calib", "recon", "deploy")
+
+
+@dataclasses.dataclass
+class QuantCtx:
+    mode: str = "fp"
+    recipe: Optional[QuantRecipe] = None
+    wstates: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    astates: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # calib mode: site -> (lo, hi) activation range seen so far
+    records: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # kernel backend for deploy mode: "auto" | "kernel" | "torch"
+    backend: str = "auto"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r} not in {MODES} (capture and "
+                             "QDrop are queued in ROADMAP)")
+
+    def _plan(self, name: str) -> Optional[SitePlan]:
+        if self.recipe is None:
+            return None
+        return self.recipe.resolve(name)
+
+    def _act(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Activation quantization before a linear (paper §4.3)."""
+        if self.mode == "fp":
+            return x
+        if self.mode == "calib":
+            x32 = x.float()
+            lo, hi = float(x32.min()), float(x32.max())
+            if name in self.records:
+                plo, phi = self.records[name]
+                lo, hi = min(lo, plo), max(hi, phi)
+            self.records[name] = (lo, hi)
+            return x
+        plan = self._plan(name)
+        if plan is None or plan.act is None or name not in self.astates:
+            return x
+        return lsq.apply(x, self.astates[name], plan.act)
+
+    def _weight(self, name: str, w: Any) -> torch.Tensor:
+        if isinstance(w, QTensor):
+            return dequantize_qtensor(w)
+        if self.mode == "recon" and name in self.wstates:
+            plan = self._plan(name)
+            return plan.method.apply(w, self.wstates[name], plan.weight)
+        return w
+
+    def _deploy_matmul(self, name: str, x: torch.Tensor,
+                       qt: QTensor) -> torch.Tensor:
+        """Serving-path matmul: a site with an 8-bit LSQ state hands the
+        kernels its snapped integer activation grid; any other site
+        quantizes (or passes) activations the usual way."""
+        from repro_torch.kernels import ops as kops
+        a_state = None
+        plan = self._plan(name)
+        if plan is not None and plan.act is not None and name in self.astates:
+            a_state = lsq.deploy_astate(self.astates[name], plan.act)
+        if a_state is None:
+            x = self._act(name, x)
+        return kops.qtensor_matmul(x, qt, a_state=a_state,
+                                   backend=self.backend)
+
+    def linear(self, name: str, x: torch.Tensor, w: Any,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y = act_quant(x) @ weight_quant(w) + b, with w (d_in, d_out)."""
+        if self.mode == "deploy" and isinstance(w, QTensor):
+            y = self._deploy_matmul(name, x, w)
+        else:
+            x_eff = self._act(name, x)
+            y = x_eff @ self._weight(name, w).to(x_eff.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y

@@ -1,0 +1,148 @@
+// K1 / K2: weight-only dequant-matmul for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel of src/repro/kernels/dequant_matmul_w4.py:
+// dequant_matmul (pl.pallas_call at :118, _kernel :37, _unpack_f32 :29),
+// reached through dequant_matmul_w4 (:135, 4-bit nibble-packed codes, K1)
+// and dequant_matmul_w8 (:144, one code per byte, K2).
+//
+//   out[M, N] = x[M, K] @ (scale[1, N] * (codes[K, N] - zero[1, N]))
+//
+// codes are uint8. Packed codes hold K rows 2i (low nibble) and 2i+1 (high
+// nibble) in byte row i. Accumulation is float32; the output has x's type
+// (float32, or bfloat16 rounded to nearest even).
+//
+// Bound on this card: at decode (M = 4 slots) the kernel has to read the
+// whole weight once (K*N/2 bytes packed, K*N bytes unpacked) for 2*M*K*N
+// flops, far below the ~295 flops per byte at which an H100 stops being
+// memory bound, so the bound is the weight bytes over 3.35 TB/s. At the
+// export pass (M = 512) the flops dominate.
+//
+// Design (simple and right first): one block owns a BM x BN output tile and
+// loops over K in BK steps. Each step stages the x tile as float32 and the
+// dequantized weight tile in shared memory; nibbles are unpacked and
+// scale*(q - zero) applied in registers while loading, so the weight crosses
+// device memory once in its packed form and is never stored dequantized.
+// Ragged M, N and K edges are masked at load and store time (no padded
+// copies, unlike the TPU wrapper's _pad_mkn). Left for later work: tensor
+// cores (wgmma), TMA staging, and split-K for the decode shapes, which launch
+// only ceil(N/BN) blocks.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 32;
+constexpr int BN = 32;
+constexpr int BK = 32;
+constexpr int THREADS = 256;
+constexpr int ROW_GROUPS = THREADS / BN;        // 8 row groups of one warp each
+constexpr int ROWS_PER_THREAD = BM / ROW_GROUPS;  // 4 outputs per thread
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <bool PACKED, typename T>
+__global__ void __launch_bounds__(THREADS)
+dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ zero, T* __restrict__ out,
+                      int M, int K, int N) {
+  __shared__ float xs[BM][BK + 1];
+  __shared__ float ws[BK][BN];
+  const int tid = threadIdx.x;
+  const int col = tid % BN;
+  const int rgrp = tid / BN;
+  const int n = blockIdx.x * BN + col;
+  const int m0 = blockIdx.y * BM;
+  const bool n_ok = n < N;
+  const float s = n_ok ? scale[n] : 0.0f;
+  const float z = n_ok ? zero[n] : 0.0f;
+  float acc[ROWS_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_THREAD; ++i) acc[i] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += THREADS) {
+      const int r = i / BK;
+      const int c = i % BK;
+      const int m = m0 + r;
+      const int k = k0 + c;
+      xs[r][c] = (m < M && k < K) ? load_f32(x + (size_t)m * K + k) : 0.0f;
+    }
+#pragma unroll
+    for (int r = rgrp; r < BK; r += ROW_GROUPS) {
+      const int k = k0 + r;
+      float w = 0.0f;
+      if (n_ok && k < K) {
+        int q;
+        if (PACKED) {
+          const uint8_t b = codes[(size_t)(k >> 1) * N + n];
+          q = (k & 1) ? (b >> 4) : (b & 0xF);
+        } else {
+          q = codes[(size_t)k * N + n];
+        }
+        // the reference's scale * (q - zero): q - zero is exact, one rounding
+        w = s * (static_cast<float>(q) - z);
+      }
+      ws[r][col] = w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float w = ws[kk][col];
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_THREAD; ++i) {
+        acc[i] = fmaf(xs[rgrp + i * ROW_GROUPS][kk], w, acc[i]);
+      }
+    }
+    __syncthreads();
+  }
+  if (!n_ok) return;
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
+    const int m = m0 + rgrp + i * ROW_GROUPS;
+    if (m < M) store_f32(out + (size_t)m * N + n, acc[i]);
+  }
+}
+
+template <bool PACKED, typename T>
+int launch(const void* x, const void* codes, const void* scale,
+           const void* zero, void* out, int M, int K, int N,
+           cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dequant_matmul_kernel<PACKED, T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<T*>(out), M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface (bound with ctypes). x and out are float32 when bf16 == 0
+// and bfloat16 otherwise; codes uint8 (K/2, N) when packed, else (K, N);
+// scale and zero float32 (1, N). Runs on `stream`, allocates nothing, and
+// returns cudaGetLastError() after the launch.
+extern "C" int dequant_matmul(const void* x, const void* codes,
+                              const void* scale, const void* zero, void* out,
+                              int M, int K, int N, int packed, int bf16,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    return bf16 ? launch<true, __nv_bfloat16>(x, codes, scale, zero, out, M, K, N, s)
+                : launch<true, float>(x, codes, scale, zero, out, M, K, N, s);
+  }
+  return bf16 ? launch<false, __nv_bfloat16>(x, codes, scale, zero, out, M, K, N, s)
+              : launch<false, float>(x, codes, scale, zero, out, M, K, N, s);
+}
+
+extern "C" const char* dequant_matmul_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
