@@ -52,10 +52,10 @@ class QuantCtx:
             raise ValueError(f"mode {self.mode!r} not in {MODES} (capture and "
                              "QDrop are queued in ROADMAP)")
 
-    def _plan(self, name: str) -> Optional[SitePlan]:
+    def _plan(self, name: str, batch_dims: int = 0) -> Optional[SitePlan]:
         if self.recipe is None:
             return None
-        return self.recipe.resolve(name)
+        return self.recipe.resolve(name, batch_dims=batch_dims)
 
     def _act(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """Activation quantization before a linear (paper §4.3)."""
@@ -74,37 +74,50 @@ class QuantCtx:
             return x
         return lsq.apply(x, self.astates[name], plan.act)
 
-    def _weight(self, name: str, w: Any) -> torch.Tensor:
+    def _weight(self, name: str, w: Any, batch_dims: int) -> torch.Tensor:
         if isinstance(w, QTensor):
             return dequantize_qtensor(w)
         if self.mode == "recon" and name in self.wstates:
-            plan = self._plan(name)
+            plan = self._plan(name, batch_dims)
             return plan.method.apply(w, self.wstates[name], plan.weight)
         return w
 
-    def _deploy_matmul(self, name: str, x: torch.Tensor,
-                       qt: QTensor) -> torch.Tensor:
-        """Serving-path matmul: a site with an 8-bit LSQ state hands the
+    def _deploy_matmul(self, name: str, x: torch.Tensor, qt: QTensor,
+                       batch_dims: int) -> torch.Tensor:
+        """Serving-path matmul: a 2-D site with an 8-bit LSQ state hands the
         kernels its snapped integer activation grid; any other site
-        quantizes (or passes) activations the usual way."""
+        (stacked experts included) quantizes (or passes) activations the
+        usual way."""
         from repro_torch.kernels import ops as kops
         a_state = None
-        plan = self._plan(name)
-        if plan is not None and plan.act is not None and name in self.astates:
-            a_state = lsq.deploy_astate(self.astates[name], plan.act)
+        if batch_dims == 0:
+            plan = self._plan(name)
+            if (plan is not None and plan.act is not None
+                    and name in self.astates):
+                a_state = lsq.deploy_astate(self.astates[name], plan.act)
         if a_state is None:
             x = self._act(name, x)
         return kops.qtensor_matmul(x, qt, a_state=a_state,
                                    backend=self.backend)
 
     def linear(self, name: str, x: torch.Tensor, w: Any,
-               b: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """y = act_quant(x) @ weight_quant(w) + b, with w (d_in, d_out)."""
-        if self.mode == "deploy" and isinstance(w, QTensor):
-            y = self._deploy_matmul(name, x, w)
+               b: Optional[torch.Tensor] = None,
+               batch_dims: int = 0) -> torch.Tensor:
+        """y = act_quant(x) @ weight_quant(w) + b.
+
+        w: (d_in, d_out), or (E, d_in, d_out) with batch_dims=1: then x has
+        shape (..., E, N, d_in) and the contraction is a per-expert matmul.
+        """
+        if (self.mode == "deploy" and isinstance(w, QTensor)
+                and batch_dims in (0, 1)):
+            y = self._deploy_matmul(name, x, w, batch_dims)
         else:
             x_eff = self._act(name, x)
-            y = x_eff @ self._weight(name, w).to(x_eff.dtype)
+            w_eff = self._weight(name, w, batch_dims).to(x_eff.dtype)
+            if batch_dims == 0:
+                y = x_eff @ w_eff
+            else:
+                y = torch.einsum("...eni,eio->...eno", x_eff, w_eff)
         if b is not None:
             y = y + b.to(y.dtype)
         return y

@@ -5,7 +5,8 @@
 - ``mse``:    grid search over 80 range-shrink factors p in [0.2, 1]
               minimizing ‖W - Ŵ‖².
 
-The reference evaluates the mse candidates inside a compiled ``lax.map``,
+The reference evaluates the mse candidates inside a compiled ``lax.map``
+(one candidate at a time; the port loops the same way),
 where XLA rewrites a division by a constant (the level count) into a
 multiplication by its float32 reciprocal; eager (minmax) calls divide. The
 port computes each path the way the reference's compiled code does, so
@@ -93,21 +94,30 @@ def minmax_scale(w: torch.Tensor, qcfg: QuantConfig):
 
 
 def mse_scale(w: torch.Tensor, qcfg: QuantConfig):
-    """Grid-search range shrinking: candidates p*[wmin, wmax]. All 80
-    candidates are evaluated in one batched pass (leading candidate axis);
-    ``argmin`` takes the first index at ties, as ``jnp.argmin`` does."""
+    """Grid-search range shrinking: candidates p*[wmin, wmax].
+
+    The candidates are evaluated one at a time, as the reference's
+    ``lax.map`` does, so peak memory is a few copies of the weight and not
+    80 (one (16, 5120, 8192) expert stack is 2.7 GB in float32). A
+    candidate replaces the best so far only when its error is strictly
+    smaller: the first index wins at a tie, as ``jnp.argmin`` does."""
     w32 = w.float()
     wmin, wmax = _range_stats(w32, qcfg)
-    axes = tuple(a + 1 for a in qz.reduce_axes(tuple(w.shape), qcfg))
+    axes = qz.reduce_axes(tuple(w.shape), qcfg)
     ps = torch.tensor(MSE_FACTORS, dtype=torch.float32, device=w.device)
-    ps = ps.reshape((-1,) + (1,) * w.dim())
-    scales, zeros = _scale_zero_from_range(wmin * ps, wmax * ps, qcfg,
-                                           compiled=True)
-    what = qz.fake_quant(w32, scales, zeros, qcfg, ste=False)
-    errs = torch.sum((w32 - what) ** 2, dim=axes, keepdim=True)
-    best = torch.argmin(errs, dim=0, keepdim=True)
-    scale = torch.take_along_dim(scales, best, dim=0)[0]
-    zero = torch.take_along_dim(zeros, best, dim=0)[0]
+    best_err = scale = zero = None
+    for p in ps:
+        s, z = _scale_zero_from_range(wmin * p, wmax * p, qcfg, compiled=True)
+        what = qz.fake_quant(w32, s, z, qcfg, ste=False)
+        err = torch.sum((w32 - what) ** 2, dim=axes, keepdim=True)
+        del what
+        if best_err is None:
+            best_err, scale, zero = err, s, z
+            continue
+        better = err < best_err
+        best_err = torch.where(better, err, best_err)
+        scale = torch.where(better, s, scale)
+        zero = torch.where(better, z, zero)
     return scale, zero
 
 

@@ -1,21 +1,30 @@
-// K1 / K2: weight-only dequant-matmul for Hopper (sm_90a).
+// K1 / K2 / K5: weight-only dequant-matmul for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/dequant_matmul_w4.py:
+// Replaces the Pallas TPU kernels of src/repro/kernels/dequant_matmul_w4.py:
 // dequant_matmul (pl.pallas_call at :118, _kernel :37, _unpack_f32 :29),
 // reached through dequant_matmul_w4 (:135, 4-bit nibble-packed codes, K1)
-// and dequant_matmul_w8 (:144, one code per byte, K2).
+// and dequant_matmul_w8 (:144, one code per byte, K2); and
+// dequant_matmul_batched (:157, pl.pallas_call at :186, _kernel_batched :57),
+// the per-expert product over stacked MoE weights (K5).
 //
 //   out[M, N] = x[M, K] @ (scale[1, N] * (codes[K, N] - zero[1, N]))
+//
+// K5 runs the same kernel once per expert e = blockIdx.z, with x, codes,
+// scale, zero and out offset by the expert's strides (x (E, M, K), codes
+// (E, K/2, N) or (E, K, N), scale/zero (E, 1, N), out (E, M, N)); K1/K2 are
+// the E = 1 case. It reads each expert's weight once per M tile, never
+// dequantized in device memory.
 //
 // codes are uint8. Packed codes hold K rows 2i (low nibble) and 2i+1 (high
 // nibble) in byte row i. Accumulation is float32; the output has x's type
 // (float32, or bfloat16 rounded to nearest even).
 //
-// Bound on this card: at decode (M = 4 slots) the kernel has to read the
-// whole weight once (K*N/2 bytes packed, K*N bytes unpacked) for 2*M*K*N
-// flops, far below the ~295 flops per byte at which an H100 stops being
-// memory bound, so the bound is the weight bytes over 3.35 TB/s. At the
-// export pass (M = 512) the flops dominate.
+// Bound on this card: at decode (M = 4 slots, or 4 capacity rows per
+// expert) the kernel has to read the whole weight once (K*N/2 bytes packed,
+// K*N bytes unpacked) for 2*M*K*N flops, far below the ~295 flops per byte
+// at which an H100 stops being memory bound, so the bound is the weight
+// bytes over 3.35 TB/s (16 experts of 5120 x 8192 W4: 335.5 MB, ~0.100 ms).
+// At the 2-D export pass (M = 512) the flops dominate.
 //
 // Design (simple and right first): one block owns a BM x BN output tile and
 // loops over K in BK steps. Each step stages the x tile as float32 and the
@@ -25,7 +34,7 @@
 // Ragged M, N and K edges are masked at load and store time (no padded
 // copies, unlike the TPU wrapper's _pad_mkn). Left for later work: tensor
 // cores (wgmma), TMA staging, and split-K for the decode shapes, which launch
-// only ceil(N/BN) blocks.
+// only ceil(N/BN) blocks; for K5, skipping capacity rows no token fills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +57,11 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <bool PACKED, typename T>
+// BATCHED is false for the 2-D kernels (one expert): offsetting the
+// pointers by the expert's strides at run time made K1/K2 up to 1.7x slower
+// at decode (0.051 vs 0.030 ms at M=4, K=576, N=1536 on the H100), so the
+// offsets exist only in the K5 instantiation.
+template <bool PACKED, bool BATCHED, typename T>
 __global__ void __launch_bounds__(THREADS)
 dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
                       const float* __restrict__ scale,
@@ -61,6 +74,14 @@ dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
   const int rgrp = tid / BN;
   const int n = blockIdx.x * BN + col;
   const int m0 = blockIdx.y * BM;
+  if (BATCHED) {  // expert e = blockIdx.z
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    codes += e * (PACKED ? K / 2 : K) * N;
+    scale += e * N;
+    zero += e * N;
+    out += e * M * N;
+  }
   const bool n_ok = n < N;
   const float s = n_ok ? scale[n] : 0.0f;
   const float z = n_ok ? zero[n] : 0.0f;
@@ -114,10 +135,12 @@ dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
 
 template <bool PACKED, typename T>
 int launch(const void* x, const void* codes, const void* scale,
-           const void* zero, void* out, int M, int K, int N,
+           const void* zero, void* out, int E, int M, int K, int N,
            cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  dequant_matmul_kernel<PACKED, T><<<grid, THREADS, 0, stream>>>(
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  auto kernel = E > 1 ? dequant_matmul_kernel<PACKED, true, T>
+                       : dequant_matmul_kernel<PACKED, false, T>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
       static_cast<T*>(out), M, K, N);
@@ -127,20 +150,21 @@ int launch(const void* x, const void* codes, const void* scale,
 }  // namespace
 
 // Plain C interface (bound with ctypes). x and out are float32 when bf16 == 0
-// and bfloat16 otherwise; codes uint8 (K/2, N) when packed, else (K, N);
-// scale and zero float32 (1, N). Runs on `stream`, allocates nothing, and
-// returns cudaGetLastError() after the launch.
-extern "C" int dequant_matmul(const void* x, const void* codes,
-                              const void* scale, const void* zero, void* out,
-                              int M, int K, int N, int packed, int bf16,
-                              void* stream) {
+// and bfloat16 otherwise; codes uint8 (E, K/2, N) when packed, else (E, K, N);
+// scale and zero float32 (E, 1, N); all contiguous. The 2-D kernels (K1
+// packed, K2 unpacked) call it with E = 1. Runs on `stream`,
+// allocates nothing, and returns cudaGetLastError() after the launch.
+extern "C" int dequant_matmul_batched(const void* x, const void* codes,
+                                      const void* scale, const void* zero,
+                                      void* out, int E, int M, int K, int N,
+                                      int packed, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (packed) {
-    return bf16 ? launch<true, __nv_bfloat16>(x, codes, scale, zero, out, M, K, N, s)
-                : launch<true, float>(x, codes, scale, zero, out, M, K, N, s);
+    return bf16 ? launch<true, __nv_bfloat16>(x, codes, scale, zero, out, E, M, K, N, s)
+                : launch<true, float>(x, codes, scale, zero, out, E, M, K, N, s);
   }
-  return bf16 ? launch<false, __nv_bfloat16>(x, codes, scale, zero, out, M, K, N, s)
-              : launch<false, float>(x, codes, scale, zero, out, M, K, N, s);
+  return bf16 ? launch<false, __nv_bfloat16>(x, codes, scale, zero, out, E, M, K, N, s)
+              : launch<false, float>(x, codes, scale, zero, out, E, M, K, N, s);
 }
 
 extern "C" const char* dequant_matmul_error_string(int err) {

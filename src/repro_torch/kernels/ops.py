@@ -9,10 +9,13 @@ device of the tensors:
   torch    the plain versions (``kernels/ref.py``) on any device, on request
            only — the counterpart of the reference's ``xla`` backend
 
-``last_kernel`` names the kernel that served the latest 2-D call, with the
+``last_kernel`` names the kernel that served the latest call, with the
 names of ``analysis/diffcheck.py:EXPECTED_KERNELS`` in the reference (the
-plain versions carry a ``_ref`` suffix). ``launch_counts`` and
-``reset_launch_counts`` read and zero the per-kernel launch counters.
+plain versions carry a ``_ref`` suffix; a weight with more than one batch
+dim is dequantized, ``dequantize-fallback``). ``launch_counts`` and
+``reset_launch_counts`` read and zero the per-kernel launch counters; K5's
+two forms count apart as ``dequant_matmul_batched[packed]`` and
+``[unpacked]``.
 """
 from __future__ import annotations
 
@@ -20,25 +23,35 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 from repro_torch.kernels import ref
-from repro_torch.kernels.dequant_matmul_w4 import (dequant_matmul_w4,
+from repro_torch.kernels.dequant_matmul_w4 import (dequant_matmul_batched,
+                                                   dequant_matmul_w4,
                                                    dequant_matmul_w8)
+from repro_torch.kernels.flexround_quant import flexround_quant
 from repro_torch.kernels.qmatmul_int8 import qmatmul_int8
 
 BACKENDS = ("auto", "kernel", "torch")
-KERNELS = (dequant_matmul_w4, dequant_matmul_w8, qmatmul_int8)
+KERNELS = (dequant_matmul_w4, dequant_matmul_w8, qmatmul_int8,
+           flexround_quant, dequant_matmul_batched)
+FALLBACK = "dequantize-fallback"
 
 last_kernel: Optional[str] = None
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    out = {k.__name__: k.launches for k in KERNELS}
+    for k in KERNELS:
+        for form, n in getattr(k, "forms", {}).items():
+            out[f"{k.__name__}[{form}]"] = n
+    return out
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        for form in getattr(k, "forms", {}):
+            k.forms[form] = 0
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -62,6 +75,30 @@ def _row(v, n: int, device) -> torch.Tensor:
     if v.numel() == 1:
         return v.reshape(1, 1).expand(1, n).contiguous()
     return v.reshape(1, n).contiguous()
+
+
+def flexround_fake_quant(w, state, qcfg, *, backend: str = "auto"):
+    """Kernel-backed equivalent of ``core.flexround.apply`` (forward only,
+    no STE), the counterpart of the reference's ``ops.flexround_fake_quant``.
+
+    Accepts the state layouts ``core.flexround.init`` produces for a 2-D
+    weight: s1/s3/zero per tensor (shape ``()`` or ``(1, 1)``) or per output
+    channel (``(N,)`` or ``(1, N)``), normalized here to contiguous (1, N)
+    rows. ``"torch"`` runs the plain version; ``"auto"`` runs K4 for CUDA
+    tensors and the plain version for CPU ones."""
+    global last_kernel
+    n = w.shape[-1]
+    s1 = _row(state["s1"], n, w.device)
+    s3 = _row(state["s3"], n, w.device)
+    zero = _row(state["zero"], n, w.device)
+    s2 = state["s2"].float().contiguous()
+    if resolve_backend(backend, w.device) == "torch":
+        last_kernel = "flexround_quant_ref"
+        return ref.flexround_quant_ref(w, s1, s2, s3, zero, qcfg.qmin,
+                                       qcfg.qmax)
+    last_kernel = "flexround_quant"
+    return flexround_quant(w.contiguous(), s1, s2, s3, zero, qmin=qcfg.qmin,
+                           qmax=qcfg.qmax)
 
 
 def _snap_codes(x2, a_scale, a_zero):
@@ -123,6 +160,24 @@ def _matmul_2d(x2, qt: QTensor, a_state, backend: str):
     return dequant_matmul_w8(x2, codes, scale, zero)
 
 
+def _matmul_batched(x3, qt: QTensor, backend: str):
+    """x3 (E, M, K) @ per-expert dequant(qt (E, K, N)) -> (E, M, N)."""
+    global last_kernel
+    E, K, N = qt.shape
+    dev = x3.device
+    scale = torch.broadcast_to(qt.scale.to(dev, torch.float32),
+                               (E, 1, N)).contiguous()
+    zero = torch.broadcast_to(qt.zero.to(dev, torch.float32),
+                              (E, 1, N)).contiguous()
+    packed = qt.packed and qt.pack_axis == 1
+    codes = (qt.codes if packed else qt.unpacked_codes()).contiguous()
+    if backend == "torch":
+        last_kernel = "dequant_matmul_batched_ref"
+        return ref.dequant_matmul_batched_ref(x3, codes, scale, zero, packed)
+    last_kernel = "dequant_matmul_batched"
+    return dequant_matmul_batched(x3, codes, scale, zero, packed)
+
+
 def qtensor_matmul(x, qt: QTensor, *, a_state=None, backend: str = "auto"):
     """x @ dequant(qt), the deploy-mode serving matmul. ``a_state`` is the
     static activation grid ``(a_scale, a_zero)`` from ``lsq.deploy_astate``
@@ -133,15 +188,27 @@ def qtensor_matmul(x, qt: QTensor, *, a_state=None, backend: str = "auto"):
     - 8-bit weights + a_state -> W8A8 integer matmul (K3).
     - 8-bit weights without a_state, and <=4-bit weights that could not
       pack -> W8 dequant-matmul (K2).
-
-    Stacked expert weights (the reference's K5) are not ported yet.
+    - stacked expert weights (E, K, N) with x (..., E, n, K) -> per-expert
+      dequant-matmul (K5); activations are quantized by the caller.
+    - more than one batch dim -> dequantized, then a plain product (no
+      kernel, as in the reference).
     """
-    if len(qt.shape) != 2:
-        raise NotImplementedError(
-            f"QTensor of shape {qt.shape}: only 2-D (d_in, d_out) weights are "
-            "ported; the batched-expert kernel (K5) is queued in ROADMAP")
+    global last_kernel
     backend = resolve_backend(backend, x.device)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    out = _matmul_2d(x2, qt, a_state, backend)
-    return out.reshape(lead + (qt.shape[-1],)).to(x.dtype)
+    n_batch = len(qt.shape) - 2
+    if n_batch == 0:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        out = _matmul_2d(x2, qt, a_state, backend)
+        return out.reshape(lead + (qt.shape[-1],)).to(x.dtype)
+    if n_batch == 1:
+        E, K, N = qt.shape
+        n = x.shape[-2]
+        lead = x.shape[:-3]
+        # (..., E, n, K) -> (E, prod(lead) * n, K)
+        x3 = x.reshape(-1, E, n, K).transpose(0, 1).reshape(E, -1, K)
+        out = _matmul_batched(x3.contiguous(), qt, backend)
+        out = out.reshape(E, -1, n, N).transpose(0, 1)
+        return out.reshape(lead + (E, n, N)).to(x.dtype)
+    last_kernel = FALLBACK
+    return (x @ dequantize_qtensor(qt).to(x.dtype)).to(x.dtype)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the deploy-matmul kernels (port of
-``repro/kernels/ref.py``, term for term).
+"""Plain PyTorch versions of every kernel (port of ``repro/kernels/ref.py``,
+term for term).
 
 They are what a kernel wrapper runs for CPU tensors, what the ``torch``
 backend runs on any device, and what ``chip_smoke.py`` holds each CUDA
@@ -10,6 +10,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def flexround_quant_ref(w, s1, s2, s3, zero, qmin: int, qmax: int):
+    """Fused FlexRound quantize: W_hat = s1*(clip(round(W/(s1*s2*s3))+z) - z).
+
+    w, s2: (M, N); s1, s3, zero: (1, N) broadcastable (per-channel) or (1, 1).
+    """
+    w32 = w.float()
+    q = torch.round(w32 / (s1 * s2 * s3)) + zero
+    q = torch.clamp(q, qmin, qmax)
+    return (s1 * (q - zero)).to(w.dtype)
 
 
 def qmatmul_int8_ref(a_q, b_q, a_scale, a_zero, b_scale, b_zero=None,
@@ -55,4 +66,15 @@ def dequant_matmul_w8_ref(x, codes, scale, zero,
     """W8A16 weight-only matmul: x (M, K) @ dequant(codes (K, N) uint8)."""
     w = scale * (codes.float() - zero)
     out = torch.matmul(x.float(), w)
+    return out.to(out_dtype or x.dtype)
+
+
+def dequant_matmul_batched_ref(x, codes, scale, zero, packed: bool,
+                               out_dtype: Optional[torch.dtype] = None):
+    """Per-expert dequant matmul: x (E, M, K) @ dequant(codes[e]) for each
+    expert e. codes (E, K//2, N) packed uint8 or (E, K, N) uint8;
+    scale/zero broadcastable to (E, 1, N)."""
+    q = unpack_f32(codes, axis=1) if packed else codes.float()
+    w = scale * (q - zero)  # (E, K, N)
+    out = torch.einsum("emk,ekn->emn", x.float(), w)
     return out.to(out_dtype or x.dtype)

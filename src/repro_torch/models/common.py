@@ -54,24 +54,26 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 
 def mlp(p: dict, x: torch.Tensor, ctx: QuantCtx, name: str,
-        act: str = "swiglu") -> torch.Tensor:
-    """SwiGLU MLP; every matmul quantizable via ctx."""
+        act: str = "swiglu", batch_dims: int = 0) -> torch.Tensor:
+    """SwiGLU MLP; every matmul quantizable via ctx. ``batch_dims=1``: the
+    weights are stacked experts (E, d_in, d_out) and x is (..., E, n, d_in)."""
     if act != "swiglu":
         raise ValueError(f"act {act!r} is not ported yet, see ROADMAP")
-    g = ctx.linear(f"{name}.w_gate", x, p["w_gate"])
-    u = ctx.linear(f"{name}.w_up", x, p["w_up"])
+    g = ctx.linear(f"{name}.w_gate", x, p["w_gate"], batch_dims=batch_dims)
+    u = ctx.linear(f"{name}.w_up", x, p["w_up"], batch_dims=batch_dims)
     h = F.silu(g.float()).to(x.dtype) * u
-    return ctx.linear(f"{name}.w_down", h, p["w_down"])
+    return ctx.linear(f"{name}.w_down", h, p["w_down"], batch_dims=batch_dims)
 
 
 def mlp_params(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-               device) -> dict:
+               device, lead: tuple = ()) -> dict:
+    """SwiGLU weights; ``lead=(E,)`` stacks E experts in front."""
     std_in = d_model**-0.5
     std_out = d_ff**-0.5
     return {
-        "w_up": normal(gen, (d_model, d_ff), std_in, dtype, device),
-        "w_down": normal(gen, (d_ff, d_model), std_out, dtype, device),
-        "w_gate": normal(gen, (d_model, d_ff), std_in, dtype, device),
+        "w_up": normal(gen, lead + (d_model, d_ff), std_in, dtype, device),
+        "w_down": normal(gen, lead + (d_ff, d_model), std_out, dtype, device),
+        "w_gate": normal(gen, lead + (d_model, d_ff), std_in, dtype, device),
     }
 
 

@@ -1,11 +1,11 @@
-"""Model registry: family -> implementation class (dense only so far)."""
+"""Model registry: family -> implementation class (dense and moe so far)."""
 from __future__ import annotations
 
 from repro_torch.models.transformer import TransformerLM
 
 
 def build_model(cfg):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet, "
                               "see ROADMAP")

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM, dense and moe families (port of
 ``repro/models/transformer.py``).
 
 Parameters are a plain dict with the reference's keys; ``layers`` is a
@@ -17,7 +17,7 @@ from repro_torch.core.context import QuantCtx
 from repro_torch.core.reconstruct import BlockHandle, Site
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, moe
 from repro_torch.serve import kv as skv
 
 
@@ -31,7 +31,8 @@ def _cache_write(buf: torch.Tensor, li: int, pos, val: torch.Tensor) -> None:
         buf[li, :, int(pos)] = val
 
 
-def _layer_params(gen, cfg, dtype, device) -> dict:
+def _layer_params(gen, cfg, dtype, device, kind: str) -> dict:
+    """kind: dense | moe."""
     D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = D**-0.5
     normal = common.normal
@@ -44,7 +45,8 @@ def _layer_params(gen, cfg, dtype, device) -> dict:
             "wo": normal(gen, (H * Dh, D), (H * Dh) ** -0.5, dtype, device),
         },
         "ln2": common.norm_params(cfg.norm, D, dtype, device),
-        "mlp": common.mlp_params(gen, D, cfg.d_ff, dtype, device),
+        "mlp": (moe.moe_params(gen, cfg, dtype, device) if kind == "moe"
+                else common.mlp_params(gen, D, cfg.d_ff, dtype, device)),
     }
     if cfg.attn_bias:
         for nm, width in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
@@ -54,10 +56,16 @@ def _layer_params(gen, cfg, dtype, device) -> dict:
 
 class TransformerLM:
     def __init__(self, cfg):
-        if cfg.family != "dense" or cfg.use_mla:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported, see ROADMAP")
+                f"{cfg.name}: only the dense and moe families are ported, "
+                "see ROADMAP")
+        if cfg.use_mla or cfg.first_dense > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA attention and leading dense layers "
+                "(deepseek-v3) are not ported yet, see ROADMAP")
         self.cfg = cfg
+        self.kind = "moe" if cfg.is_moe else "dense"
 
     # ------------------------------------------------------------- init
     def init(self, generator: torch.Generator,
@@ -71,7 +79,7 @@ class TransformerLM:
             "embed": common.normal(generator, (cfg.vocab, cfg.d_model), 0.02,
                                    dtype, dev),
             "final_norm": common.norm_params(cfg.norm, cfg.d_model, dtype, dev),
-            "layers": [_layer_params(generator, cfg, dtype, dev)
+            "layers": [_layer_params(generator, cfg, dtype, dev, self.kind)
                        for _ in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
@@ -99,34 +107,44 @@ class TransformerLM:
                            chunk=cfg.attn_chunk)
         return ctx.linear(f"{name}.wo", o.reshape(B, S, H * Dh), a["wo"]), (k, v)
 
+    def _ffn(self, p, h, ctx, name):
+        """The layer's FFN: (out, aux loss); aux is 0 for a dense layer."""
+        if self.kind == "moe":
+            return moe.moe_ffn(p["mlp"], h, self.cfg, ctx, name)
+        out = common.mlp(p["mlp"], h, ctx, f"{name}.mlp", self.cfg.act)
+        return out, torch.zeros((), dtype=torch.float32, device=h.device)
+
     def layer_apply(self, p, x, ctx, name, sin, cos):
-        """Full-sequence layer; returns (y, (k, v))."""
+        """Full-sequence layer; returns (y, aux_loss, (k, v))."""
         cfg = self.cfg
         h = common.apply_norm(cfg.norm, x, p.get("ln1"))
         a_out, kv = self._attn_full(p, h, ctx, name, sin, cos)
         x = x + a_out * cfg.resid_mult
         h = common.apply_norm(cfg.norm, x, p.get("ln2"))
-        x = x + common.mlp(p["mlp"], h, ctx, f"{name}.mlp", cfg.act) * cfg.resid_mult
-        return x, kv
+        m_out, aux = self._ffn(p, h, ctx, name)
+        x = x + m_out * cfg.resid_mult
+        return x, aux, kv
 
     # ----------------------------------------------------------- forward
     def backbone(self, params, tokens: torch.Tensor, ctx: QuantCtx,
                  collect_kv: bool = False):
-        """tokens (B, S) -> (hidden (B, S, D), per-layer [(k, v)] or None).
-        Sites are named ``layers.<site>`` (no layer index), as in the
-        reference's scanned forward."""
+        """tokens (B, S) -> (hidden (B, S, D), summed aux loss, per-layer
+        [(k, v)] or None). Sites are named ``layers.<site>`` (no layer
+        index), as in the reference's scanned forward."""
         cfg = self.cfg
         x = common.embed_tokens(params["embed"], tokens, cfg.emb_mult)
         B, S, _ = x.shape
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
         sin, cos = self._rope(pos)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = []
         for p_l in params["layers"]:
-            x, kv = self.layer_apply(p_l, x, ctx, "layers", sin, cos)
+            x, a, kv = self.layer_apply(p_l, x, ctx, "layers", sin, cos)
+            aux = aux + a
             if collect_kv:
                 kvs.append(kv)
         x = common.apply_norm(cfg.norm, x, params.get("final_norm"))
-        return x, (kvs if collect_kv else None)
+        return x, aux, (kvs if collect_kv else None)
 
     def lm_head(self, params):
         if self.cfg.tie_embeddings:
@@ -164,7 +182,7 @@ class TransformerLM:
         returns (last hidden (B, 1, D), cache). ``true_len`` (B,) marks each
         row's real prompt length inside a right-padded bucket: the hidden is
         gathered at ``true_len - 1``."""
-        x, kvs = self.backbone(params, tokens, ctx, collect_kv=True)
+        x, _, kvs = self.backbone(params, tokens, ctx, collect_kv=True)
         S = tokens.shape[1]
         for li, (k, v) in enumerate(kvs):
             if "k_scale" in cache:
@@ -220,15 +238,19 @@ class TransformerLM:
             a_out = ctx.linear("layers.wo", o.reshape(B, 1, H * Dh), a["wo"])
             x = x + a_out * cfg.resid_mult
             z = common.apply_norm(cfg.norm, x, p_l.get("ln2"))
-            x = x + common.mlp(p_l["mlp"], z, ctx, "layers.mlp", cfg.act) * cfg.resid_mult
+            m_out, _ = self._ffn(p_l, z, ctx, "layers")
+            x = x + m_out * cfg.resid_mult
         x = common.apply_norm(cfg.norm, x, params.get("final_norm"))
         return self.logits(params, x), cache
 
     # --------------------------------------------------------- PTQ plan
-    def _layer_sites(self) -> Dict[str, Site]:
+    def _layer_sites(self, kind: str) -> Dict[str, Site]:
         sites = {f"layers.{n}": Site(("attn", n)) for n in ("wq", "wk", "wv", "wo")}
-        sites.update({f"layers.mlp.{n}": Site(("mlp", n))
-                      for n in ("w_up", "w_down", "w_gate")})
+        if kind == "moe":
+            sites.update(moe.moe_sites("layers", self.cfg))
+        else:
+            sites.update({f"layers.mlp.{n}": Site(("mlp", n))
+                          for n in ("w_up", "w_down", "w_gate")})
         return sites
 
     def quant_blocks(self, params, batch_tokens: torch.Tensor
@@ -246,7 +268,7 @@ class TransformerLM:
         for i, p_l in enumerate(params["layers"]):
             bname = f"layers.{i}"
             sites = {k.replace("layers", bname, 1): v
-                     for k, v in self._layer_sites().items()}
+                     for k, v in self._layer_sites(self.kind).items()}
 
             def apply_fn(p, x, ctx, _bn=bname):
                 return self.layer_apply(p, x, ctx, _bn, sin, cos)[0]

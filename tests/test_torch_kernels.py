@@ -1,5 +1,6 @@
 """Port parity: ``repro_torch.kernels.ops.qtensor_matmul`` against the
-reference dispatcher, for every 2-D kernel-table layout.
+reference dispatcher, for every kernel-table layout: the five 2-D ones and
+the stacked-expert one (``experts_batched``, the reference's K5).
 
 On the CPU the port runs the plain versions of its kernels; they are held
 against ``repro.kernels.ops.qtensor_matmul(backend="xla")`` over the
@@ -9,7 +10,8 @@ Pallas kernels (``backend="pallas"``) on three shapes per layout. Inputs
 (QTensor, activations, activation grid) are carried across the bridge.
 
 Inputs are drawn with numpy from a seed per shape: integer codes straight
-on the grid (nibble-packed along K for even-K 4-bit), per-channel scale and
+on the grid (nibble-packed along K for even-K 4-bit; for stacked experts
+(E, K/2, N) packed along axis 1), per-channel scale and
 zero point, activations, and the activation grid the reference's
 ``lsq.init``/``deploy_astate`` derive from the activation range. The
 reference runs jitted, as it serves.
@@ -18,7 +20,7 @@ Tolerances: the W8A8 path is bit-exact (integer accumulation, the same
 elementwise epilogue); the float paths use rtol=atol=1e-5, which covers a
 float32 contraction of up to ~1000 terms summed in another order. The CUDA
 kernels themselves are compared on the card by ``chip_smoke.py``; the one
-card-only test here checks the kernel names ``last_kernel`` records.
+card-only tests here check the kernel names ``last_kernel`` records.
 """
 import jax
 import jax.numpy as jnp
@@ -37,11 +39,11 @@ from repro_torch.kernels import ops
 torch.set_num_threads(2)
 
 LAYOUTS = ("w4_packed", "w4a8_packed", "w8a8", "w8_weight_only",
-           "w4_odd_unpacked")
+           "w4_odd_unpacked", "experts_batched")
 # layout -> (weight bits, with activation grid)
 _LAYOUT = {"w4_packed": (4, False), "w4a8_packed": (4, True),
            "w8a8": (8, True), "w8_weight_only": (8, False),
-           "w4_odd_unpacked": (4, False)}
+           "w4_odd_unpacked": (4, False), "experts_batched": (4, False)}
 CASES = [(layout, shape) for layout in LAYOUTS
          for shape in shape_lattice(layout)]
 _AQ = JQuantConfig(bits=8, symmetric=False, granularity="per_tensor",
@@ -50,22 +52,26 @@ _ref_jit = jax.jit(lambda x, qt, a: jops.qtensor_matmul(x, qt, a_state=a,
                                                          backend="xla"))
 
 
-def _example(layout, m, k, n, seed=0):
-    """(x, reference QTensor, activation grid or None) for one cell."""
+def _example(layout, m, k, n, seed=0, e=None):
+    """(x, reference QTensor, activation grid or None) for one cell; with
+    ``e`` experts the weight is stacked (e, k, n) and x is (e, m, k)."""
     bits, with_a = _LAYOUT[layout]
-    rng = np.random.default_rng([seed, m, k, n, bits])
-    q = rng.integers(0, 2**bits, size=(k, n)).astype(np.uint8)
+    lead = () if e is None else (e,)
+    ax = len(lead)  # the contraction axis K
+    rng = np.random.default_rng([seed, m, k, n, bits] + list(lead))
+    q = rng.integers(0, 2**bits, size=lead + (k, n)).astype(np.uint8)
     packed = bits == 4 and k % 2 == 0
-    codes = (q[0::2] | (q[1::2] << 4)).astype(np.uint8) if packed else q
+    codes = ((q.take(range(0, k, 2), ax) | (q.take(range(1, k, 2), ax) << 4))
+             .astype(np.uint8) if packed else q)
     # grid steps that span weights of about +-0.1, as the reference's
     # lattice exemplars (N(0, 0.1) weights) have
-    scale = (np.exp(rng.standard_normal((1, n)) * 0.2) * 0.2
+    scale = (np.exp(rng.standard_normal(lead + (1, n)) * 0.2) * 0.2
              / (2**bits - 1)).astype(np.float32)
-    zero = np.round(rng.uniform(0, 2**bits - 1, (1, n))).astype(np.float32)
-    x = rng.standard_normal((m, k)).astype(np.float32)
+    zero = np.round(rng.uniform(0, 2**bits - 1, lead + (1, n))).astype(np.float32)
+    x = rng.standard_normal(lead + (m, k)).astype(np.float32)
     qt = JQTensor(codes=jnp.asarray(codes), scale=jnp.asarray(scale),
-                  zero=jnp.asarray(zero), shape=(k, n), bits=bits,
-                  packed=packed, dtype="float32", pack_axis=0)
+                  zero=jnp.asarray(zero), shape=lead + (k, n), bits=bits,
+                  packed=packed, dtype="float32", pack_axis=ax)
     a_state = None
     if with_a:
         st = jlsq.init(jnp.asarray([x.min(), x.max()], jnp.float32), _AQ)
@@ -94,11 +100,15 @@ def _check(layout, got, want):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _lattice_example(layout, e, m, k, n):
+    return _example(layout, m, k, n,
+                    e=e if layout == "experts_batched" else None)
+
+
 @pytest.mark.parametrize("layout,shape", CASES,
                          ids=[f"{l}-e{e}m{m}k{k}n{n}" for l, (e, m, k, n) in CASES])
 def test_plain_versions_match_reference_xla(layout, shape):
-    _, m, k, n = shape
-    x, qt, a_state = _example(layout, m, k, n)
+    x, qt, a_state = _lattice_example(layout, *shape)
     want = _ref_jit(x, qt, a_state)
     got = _port_matmul(x, qt, a_state, "auto")
     _check(layout, got, want)
@@ -107,8 +117,8 @@ def test_plain_versions_match_reference_xla(layout, shape):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_plain_versions_match_reference_pallas_interpret(layout):
-    for _, m, k, n in shape_lattice(layout)[:3]:
-        x, qt, a_state = _example(layout, m, k, n)
+    for shape in shape_lattice(layout)[:3]:
+        x, qt, a_state = _lattice_example(layout, *shape)
         want = jops.qtensor_matmul(x, qt, a_state=a_state, backend="pallas",
                                    interpret=True)
         _check(layout, _port_matmul(x, qt, a_state, "torch"), want)
@@ -136,13 +146,41 @@ def test_kernel_backend_refuses_cpu_tensors():
         ops.resolve_backend("xla", torch.device("cpu"))
 
 
-def test_batched_experts_not_ported():
-    x, qt, _ = _example("w4_packed", 5, 16, 8)
-    qt = JQTensor(codes=qt.codes[None], scale=qt.scale[None],
-                  zero=qt.zero[None], shape=(1, 16, 8), bits=4, packed=True,
-                  dtype="float32", pack_axis=1)
-    with pytest.raises(NotImplementedError, match="K5"):
-        _port_matmul(x[None], qt, None, "auto")
+@pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
+def test_batched_experts_token_axes_move_as_reference(lead):
+    """x (..., E, n, K) against stacked experts: leading token axes fold
+    into each expert's rows and back, unpacked 8-bit codes take the same
+    kernel, and more than one batch dim dequantizes (the reference's
+    fallback)."""
+    x, qt, _ = _example("experts_batched", 3, 16, 8, e=4)
+    x = jnp.broadcast_to(x, lead + x.shape) * (1 + jnp.arange(
+        int(np.prod(lead)), dtype=jnp.float32).reshape(lead + (1, 1, 1)))
+    want = _ref_jit(x, qt, None)
+    _check("experts_batched", _port_matmul(x, qt, None, "torch"), want)
+    assert ops.last_kernel == "dequant_matmul_batched_ref"
+    w8 = JQTensor(codes=qt.unpacked_codes(), scale=qt.scale, zero=qt.zero,
+                  shape=qt.shape, bits=8, packed=False, dtype="float32",
+                  pack_axis=1)
+    _check("experts_batched", _port_matmul(x, w8, None, "auto"),
+           _ref_jit(x, w8, None))
+    assert ops.last_kernel == "dequant_matmul_batched_ref"
+    qt2 = JQTensor(codes=qt.codes[None], scale=qt.scale[None],
+                   zero=qt.zero[None], shape=(1,) + qt.shape, bits=4,
+                   packed=True, dtype="float32", pack_axis=2)
+    x2 = x.reshape(lead + (1,) + x.shape[len(lead):])
+    _check("experts_batched", _port_matmul(x2, qt2, None, "auto"),
+           _ref_jit(x2, qt2, None))
+    assert ops.last_kernel == ops.FALLBACK
+
+
+def test_launch_counters_list_every_kernel():
+    counts = ops.launch_counts()
+    assert set(counts) == {
+        "dequant_matmul_w4", "dequant_matmul_w8", "qmatmul_int8",
+        "flexround_quant", "dequant_matmul_batched",
+        "dequant_matmul_batched[packed]", "dequant_matmul_batched[unpacked]"}
+    ops.reset_launch_counts()
+    assert not any(ops.launch_counts().values())
 
 
 @pytest.mark.requires_cuda
@@ -153,8 +191,7 @@ def test_cuda_kernels_match_plain_versions(layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs these kernels "
                     "on the card")
-    _, m, k, n = shape_lattice(layout)[-1]
-    x, qt, a_state = _example(layout, m, k, n)
+    x, qt, a_state = _lattice_example(layout, *shape_lattice(layout)[-1])
     before = ops.launch_counts()
     got = _port_matmul(x, qt, a_state, "kernel", device="cuda")
     torch.cuda.synchronize()

@@ -93,7 +93,7 @@ def test_backbone_logits_match(lm, mode):
     toks = _tokens(lm["cfg"], (3, 12), seed=1)
     jp, p = (lm["jparams"], lm["params"]) if mode == "fp" else (lm["jq"], lm["q"])
     jx, _, _ = lm["jmodel"].backbone(jp, jnp.asarray(toks), _jctx(lm, mode))
-    x, _ = lm["model"].backbone(p, torch.from_numpy(toks), _ctx(lm, mode))
+    x, _, _ = lm["model"].backbone(p, torch.from_numpy(toks), _ctx(lm, mode))
     np.testing.assert_allclose(_np(x), np.asarray(jx), **F32)
     jlogits = jx @ lm["jmodel"].lm_head(jp).astype(jx.dtype)
     np.testing.assert_allclose(_np(lm["model"].logits(p, x)),
@@ -182,7 +182,7 @@ def test_bf16_model_logits(lm):
     assert params["embed"].dtype == torch.bfloat16
     toks = _tokens(cfg, (2, 10), seed=5)
     jx, _, _ = jmodel.backbone(jparams, jnp.asarray(toks), JQuantCtx(mode="fp"))
-    x, _ = model.backbone(params, torch.from_numpy(toks), QuantCtx(mode="fp"))
+    x, _, _ = model.backbone(params, torch.from_numpy(toks), QuantCtx(mode="fp"))
     assert x.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(x), np.asarray(jx, np.float32),
                                rtol=2e-2, atol=2e-2)

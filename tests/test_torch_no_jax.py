@@ -19,14 +19,21 @@ for m in mods:
     importlib.import_module(m)
 print(len(mods), 'jax' in sys.modules, 'repro' in sys.modules,
       any(k.startswith(('jax.', 'repro.')) for k in sys.modules))
+print(' '.join(mods))
 """
+
+NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
+               "repro_torch.configs.llama4_scout_17b_a16e")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
-    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
-                         text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 25
+    lines = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                           text=True, timeout=120,
+                           check=True).stdout.splitlines()
+    out = lines[0].split()
+    assert int(out[0]) >= 28
     assert out[1:] == ["False", "False", "False"]
+    assert set(NEW_MODULES) <= set(lines[1].split())
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
@@ -39,10 +46,18 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
+    _check_defaults_to_cuda(monkeypatch, "smollm-135m")
+
+
+def test_moe_entry_points_default_to_cuda(monkeypatch):
+    _check_defaults_to_cuda(monkeypatch, "llama4-scout-17b-a16e")
+
+
+def _check_defaults_to_cuda(monkeypatch, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model = build_model(get_smoke_config("smollm-135m"))
+    model = build_model(get_smoke_config(arch))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -84,6 +84,59 @@ def test_observer_and_flexround_export_bit_identical(observer, symmetric,
                                   np.asarray(jfr.apply(jnp.asarray(w), jst, jq)))
 
 
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_mse_candidates_one_at_a_time_on_expert_stack(granularity, symmetric):
+    """The mse observer walks its 80 candidates one at a time (peak memory
+    O(weight), not O(80 x weight)) and still picks the reference's scale
+    and zero on a stacked (E, K, N) expert weight with per-expert scales.
+    Channel (1, :, 2) is scaled so far down that every candidate's scale
+    clamps at the 1e-8 floor: those candidates tie exactly, and the first
+    of them must win; channel (2, :, 5) is all zero (all 80 tie)."""
+    jq, tq = _cfgs(bits=4, symmetric=symmetric, granularity=granularity,
+                   observer="mse", batch_dims=1)
+    w = _weight((3, 16, 8), seed=21)
+    w[1, :, 2] *= 1e-7
+    w[2, :, 5] = 0.0
+    js, jz = jobs.init_scale(jnp.asarray(w), jq)
+    ts, tz = observers.init_scale(torch.from_numpy(w), tq)
+    np.testing.assert_array_equal(_np(ts), np.asarray(js))
+    np.testing.assert_array_equal(_np(tz), np.asarray(jz))
+    if granularity == "per_channel":
+        assert ts.shape == (3, 1, 8)
+        assert float(ts[1, 0, 2]) == np.float32(1e-8)
+        assert float(ts[2, 0, 5]) == np.float32(1e-8)
+    jst = jfr.init(jnp.asarray(w), jq)
+    tst = flexround.init(torch.from_numpy(w), tq)
+    jqt = jfr.export(jnp.asarray(w), jst, jq, dtype=jnp.float32)
+    tqt = flexround.export(torch.from_numpy(w), tst, tq, dtype=torch.float32)
+    assert tqt.pack_axis == jqt.pack_axis == 1 and tqt.packed and jqt.packed
+    for fld in ("codes", "scale", "zero"):
+        np.testing.assert_array_equal(_np(getattr(tqt, fld)),
+                                      np.asarray(getattr(jqt, fld)))
+    assert tuple(tst["s3"].shape) == (3, 1, 8)
+
+
+def test_mse_peak_memory_does_not_grow_with_candidates(monkeypatch):
+    """Every tensor the observer makes is at most the weight's size: the
+    candidate axis is never materialized."""
+    from repro_torch.core import quantizer as qz
+    biggest = []
+    real = qz.fake_quant
+
+    def spy(w, scale, zero, qcfg, ste=True):
+        out = real(w, scale, zero, qcfg, ste=ste)
+        biggest.append(max(out.numel(), scale.numel()))
+        return out
+
+    monkeypatch.setattr(qz, "fake_quant", spy)
+    w = torch.from_numpy(_weight((4, 32, 16), seed=3))
+    observers.mse_scale(w, QuantConfig(bits=4, granularity="per_channel",
+                                       observer="mse", batch_dims=1))
+    assert len(biggest) == len(observers.MSE_FACTORS)
+    assert max(biggest) == w.numel()
+
+
 @pytest.mark.parametrize("observer", ["minmax", "mse"])
 @pytest.mark.parametrize("bits", [4, 3])
 def test_odd_k_exports_unpacked(observer, bits):
