@@ -14,12 +14,16 @@ last line is not printed):
 3. Kernels  — hold every kernel against its plain PyTorch version on the
               card, and time kernel, plain version, library yardstick and
               bound with CUDA events:
-              K1 (dequant_matmul_w4), K2 (dequant_matmul_w8) and K3
-              (qmatmul_int8) at the smollm-135m shapes (M in {4, 64, 512},
-              every site's (K, N)) and the llama4-scout 2-D shapes
-              ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120); M in
-              {4, 512} for K1/K2, 512 for K3), plus ragged M, N and K, x in
-              bfloat16 and float32; K3's int32 accumulator must be exact.
+              K1 (dequant_matmul_w4) and K2 (dequant_matmul_w8) at the
+              smollm-135m shapes (every site's (K, N), M in {4, 8, 9, 16,
+              32, 64, 512}: both sides of the decode/mma threshold) and the
+              llama4-scout 2-D shapes ((5120, 5120), (5120, 1024), (5120,
+              8192), (8192, 5120); M in {4, 16, 512}), plus ragged M, N and
+              K and misaligned x and codes in both regimes, x in bfloat16
+              and float32; each row names the regime the call took. K3
+              (qmatmul_int8) at the smollm shapes (M in {4, 64, 512}), the
+              llama4 2-D shapes at M = 512 and ragged; its int32
+              accumulator must be exact.
               K5 (dequant_matmul_batched) at the expert shapes, E = 16,
               M in {4, 40}, (K, N) in {(5120, 8192), (8192, 5120)}, packed
               and unpacked codes, x in bfloat16 and float32, plus a ragged
@@ -34,7 +38,9 @@ last line is not printed):
               then the serving engine (4 slots, max_len 32, int8 KV cache)
               answers 8 requests of 16 new tokens. The launch counters are
               zeroed just before and read just after; K1, K2 and K3 must
-              have launched. One request is re-run with the plain versions
+              have launched, K1 and K2 each in both regimes (decode from
+              the decode steps, mma from prefill or the export). One
+              request is re-run with the plain versions
               (backend "torch") and must agree within bfloat16 tolerance.
 5. MoE path — llama4-scout-17b-a16e at full width (d_model 5120, 16
               experts, top-1, shared expert, vocab 202048) and 4 of its 48
@@ -45,7 +51,7 @@ last line is not printed):
               A8, per-channel, mse observer) on 8 x 64 calibration tokens
               and the same serving run as phase 4. K5 must launch packed
               and unpacked in the export and in serving, and K1, K2 and K3
-              must launch. One MoE FFN of a W8 and of a W4 layer is fed the
+              must launch, K1 and K2 in both regimes. One MoE FFN of a W8 and of a W4 layer is fed the
               same hidden input with backend "auto" and "torch": identical
               routing, outputs within bfloat16 tolerance. Request 0 is
               re-run with the plain versions; the relative L2 of its logits
@@ -95,9 +101,9 @@ TIMED = {
 }
 KERNEL_NAMES = tuple(TIMED)
 SOURCES = {
-    "dequant_matmul_w4": ("src/repro_torch/csrc/dequant_matmul.cu",
+    "dequant_matmul_w4": ("src/repro_torch/csrc/dequant_matmul_2d.cu",
                           "src/repro/kernels/dequant_matmul_w4.py:135"),
-    "dequant_matmul_w8": ("src/repro_torch/csrc/dequant_matmul.cu",
+    "dequant_matmul_w8": ("src/repro_torch/csrc/dequant_matmul_2d.cu",
                           "src/repro/kernels/dequant_matmul_w4.py:144"),
     "qmatmul_int8": ("src/repro_torch/csrc/qmatmul_int8.cu",
                      "src/repro/kernels/qmatmul_int8.py:58"),
@@ -181,22 +187,42 @@ def bound(M: int, K: int, N: int, in_type: str, byte_count: int):
 
 
 # ----------------------------------------------------------------- kernels
-def check_dequant(torch, kern, ref, name, M, K, N, dtype, gen, timed):
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary, so the kernels must take their scalar-load path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_dequant(torch, kern, ref, name, M, K, N, dtype, gen, timed,
+                  misalign=False):
+    """K1/K2 against the plain version; the row names the regime the call
+    took (read from the wrapper's per-form counter) and must match
+    ``plan``. ``misalign`` moves x and codes off their 16-byte alignment."""
     packed = name == "dequant_matmul_w4"
     bits = 4 if packed else 8
     x = torch.randn((M, K), generator=gen, device=DEV).to(dtype)
     rows = K // 2 if packed else K
     codes = torch.randint(0, 256 if packed else 2**bits, (rows, N),
                           generator=gen, device=DEV, dtype=torch.uint8)
+    if misalign:
+        x, codes = _misaligned(torch, x), _misaligned(torch, codes)
     scale = (torch.exp(torch.randn((1, N), generator=gen, device=DEV) * 0.2)
              * 0.2 / (2**bits - 1))
     zero = torch.round(torch.rand((1, N), generator=gen, device=DEV)
                        * (2**bits - 1))
     fn = getattr(kern, name)
     plain = getattr(ref, f"{name}_ref")
+    p = kern.plan(M, K, N, dtype, packed, x.data_ptr(), codes.data_ptr())
+    forms = dict(fn.forms)
     got = fn(x, codes, scale, zero)
+    took = [f for f in forms if fn.forms[f] != forms[f]]
     want = plain(x, codes, scale, zero)
     torch.cuda.synchronize()
+    if took != [p.regime] or (misalign and (p.vec_codes or p.vec_x)):
+        fail(f"{name} {M}x{K}x{N} {dtype}: launched {took}, planned {p}")
     if got.dtype != dtype or got.shape != (M, N) or not torch.isfinite(got).all():
         fail(f"{name} {M}x{K}x{N} {dtype}: bad output {got.dtype} {tuple(got.shape)}")
     err = (got.float() - want.float()).abs()
@@ -208,7 +234,8 @@ def check_dequant(torch, kern, ref, name, M, K, N, dtype, gen, timed):
         fail(f"{name} {M}x{K}x{N} {dtype}: max |err| {err.max().item():.3e} "
              f"beyond the stated tolerance")
     row = {"kernel": name, "M": M, "K": K, "N": N,
-           "x": str(dtype).replace("torch.", ""),
+           "x": str(dtype).replace("torch.", ""), "regime": p.regime,
+           "tile": p.kernel, "splits": p.splits, "misaligned": misalign,
            "max_abs_err": err.max().item()}
     if timed:
         wbytes = codes.numel() + 8 * N
@@ -406,7 +433,9 @@ def _log_rows(rows):
         else:
             shape = (f"{'E=%d ' % r['E'] if 'E' in r else ''}M={r['M']:4d} "
                      f"K={r['K']:5d} N={r['N']:5d} x={r['x']:8s}"
-                     + (f" packed={r['packed']}" if "packed" in r else ""))
+                     + (f" packed={r['packed']}" if "packed" in r else "")
+                     + (f" {r['regime']:6s} tile={r['tile']} "
+                        f"splits={r['splits']:2d}" if "regime" in r else ""))
         log(f"  {r['kernel']:22s} {shape} ms={r['ms']:.5f} "
             f"eager_ms={r['eager_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
             f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
@@ -421,22 +450,37 @@ def kernels_phase(torch):
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = []
     shapes = sorted(set(SMOLLM_SITES.values()))
-    for M in (4, 64, 512):
+    k12_names = ("dequant_matmul_w4", "dequant_matmul_w8")
+    # K1/K2 regimes: decode up to DECODE_MAX_M rows of bf16 x (and float32
+    # x at any M), tensor cores above; M on both sides of the threshold
+    edge = k12.DECODE_MAX_M
+    for M in (4, edge, edge + 1, 16, 32, 64, 512):
         for K, N in shapes:
             for dtype in (torch.bfloat16, torch.float32):
-                timed = dtype == torch.bfloat16
-                for name in ("dequant_matmul_w4", "dequant_matmul_w8"):
+                timed = dtype == torch.bfloat16 and M in (4, 16, 64, 512)
+                for name in k12_names:
                     rows.append(check_dequant(torch, k12, ref, name, M, K, N,
                                               dtype, gen, timed))
-            rows.append(check_int8(torch, k3, ref, M, K, N, gen, timed=True))
-    for dtype in (torch.bfloat16, torch.float32):  # ragged M, N and K tiles
-        rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4", 7, 578,
-                                  200, dtype, gen, False))
-        rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w8", 7, 577,
-                                  200, dtype, gen, False))
+            if M in (4, 64, 512):
+                rows.append(check_int8(torch, k3, ref, M, K, N, gen,
+                                       timed=True))
+    # ragged M, N and K tiles and x and codes off their 16-byte alignment,
+    # on every kernel: bf16 M=7 decode, M=40 mma.sync, M=130 wgmma (128
+    # and, at N=8200, 256 weight columns per block); float32 x
+    for M, N in ((7, 200), (40, 200), (130, 200), (130, 8200)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4", M,
+                                      578, N, dtype, gen, False))
+            rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w8", M,
+                                      577, N, dtype, gen, False))
+            if N == 200:
+                for name in k12_names:
+                    rows.append(check_dequant(torch, k12, ref, name, M, 576,
+                                              1536, dtype, gen, False,
+                                              misalign=True))
     rows.append(check_int8(torch, k3, ref, 7, 577, 200, gen, timed=False))
-    # llama4-scout's 2-D sites: decode and export
-    for M in (4, 512):
+    # llama4-scout's 2-D sites: decode, prefill and export
+    for M in (4, 16, 512):
         for K, N in LLAMA4_2D:
             for dtype in (torch.bfloat16, torch.float32):
                 for name in ("dequant_matmul_w4", "dequant_matmul_w8"):
@@ -574,6 +618,18 @@ def export(torch, model, params, calib, recipe, w8_layers):
     return fin, astates, export_s, errs
 
 
+REGIMES = tuple(f"{k}[{r}]" for k in ("dequant_matmul_w4", "dequant_matmul_w8")
+                for r in ("decode", "mma"))
+
+
+def require_regimes(counts, where):
+    """K1 and K2 must each have run in both regimes over a path's window:
+    decode from serving's decode steps, mma from prefill or the export."""
+    missing = [k for k in REGIMES if counts[k] == 0]
+    if missing:
+        fail(f"{where} did not launch {missing}: {counts}")
+
+
 def _qtensors(tree):
     from repro_torch.core.qtensor import QTensor
     if isinstance(tree, QTensor):
@@ -651,6 +707,7 @@ def path_phase(torch, np):
     log(f"serve launches {serve_counts}")
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving did not launch K1 and K2: {serve_counts}")
+    require_regimes(counts, "the smollm path")
     peak = torch.cuda.max_memory_allocated()
     log(f"serve: hbm_per_slot_bytes {stats['hbm_per_slot_bytes']}, "
         f"max_memory_allocated {peak} B")
@@ -821,6 +878,7 @@ def moe_path_phase(torch, np):
             "K3": counts["qmatmul_int8"]}
     if not all(need.values()):
         fail(f"the MoE path did not launch every kernel: {need}")
+    require_regimes(counts, "the MoE path")
     peak = torch.cuda.max_memory_allocated()
     expect = 32 * cfg.n_layers * cfg.n_kv_heads * (2 * cfg.head_dim + 2 * 4)
     log(f"serve: hbm_per_slot_bytes {stats['hbm_per_slot_bytes']} (expected "
@@ -925,6 +983,8 @@ def main() -> int:
                   "x": timed["x"]})
         if "E" in timed:
             shape.update(E=timed["E"], packed=timed["packed"])
+        if "regime" in timed:
+            shape.update(regime=timed["regime"])
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()),

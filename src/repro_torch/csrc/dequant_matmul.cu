@@ -1,40 +1,33 @@
-// K1 / K2 / K5: weight-only dequant-matmul for Hopper (sm_90a).
+// K5: batched-expert weight-only dequant-matmul for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/dequant_matmul_w4.py:
-// dequant_matmul (pl.pallas_call at :118, _kernel :37, _unpack_f32 :29),
-// reached through dequant_matmul_w4 (:135, 4-bit nibble-packed codes, K1)
-// and dequant_matmul_w8 (:144, one code per byte, K2); and
-// dequant_matmul_batched (:157, pl.pallas_call at :186, _kernel_batched :57),
-// the per-expert product over stacked MoE weights (K5).
+// Replaces the Pallas TPU kernel of src/repro/kernels/dequant_matmul_w4.py:
+// dequant_matmul_batched (:157, pl.pallas_call at :186, _kernel_batched
+// :57), the per-expert product over stacked MoE weights:
 //
-//   out[M, N] = x[M, K] @ (scale[1, N] * (codes[K, N] - zero[1, N]))
+//   out[e] = x[e] @ (scale[e] * (codes[e] - zero[e]))
 //
-// K5 runs the same kernel once per expert e = blockIdx.z, with x, codes,
-// scale, zero and out offset by the expert's strides (x (E, M, K), codes
-// (E, K/2, N) or (E, K, N), scale/zero (E, 1, N), out (E, M, N)); K1/K2 are
-// the E = 1 case. It reads each expert's weight once per M tile, never
-// dequantized in device memory.
+// x (E, M, K), codes (E, K/2, N) nibble-packed along K (K rows 2i in the
+// low nibble, 2i+1 in the high nibble of byte row i) or (E, K, N), scale and
+// zero (E, 1, N), out (E, M, N). Expert e = blockIdx.z; each expert's weight
+// is read once per M tile, never dequantized in device memory.
+// Accumulation is float32; the output has x's type (float32, or bfloat16
+// rounded to nearest even). The 2-D kernels K1/K2 live in
+// dequant_matmul_2d.cu.
 //
-// codes are uint8. Packed codes hold K rows 2i (low nibble) and 2i+1 (high
-// nibble) in byte row i. Accumulation is float32; the output has x's type
-// (float32, or bfloat16 rounded to nearest even).
+// Bound on this card: at decode (4 capacity rows per expert) the kernel has
+// to read the whole stack once (K*N/2 bytes per expert packed, K*N
+// unpacked) for 2*M*K*N flops, far below the ~295 flops per byte at which
+// an H100 stops being memory bound, so the bound is the weight bytes over
+// 3.35 TB/s (16 experts of 5120 x 8192 W4: 335.5 MB, ~0.100 ms).
 //
-// Bound on this card: at decode (M = 4 slots, or 4 capacity rows per
-// expert) the kernel has to read the whole weight once (K*N/2 bytes packed,
-// K*N bytes unpacked) for 2*M*K*N flops, far below the ~295 flops per byte
-// at which an H100 stops being memory bound, so the bound is the weight
-// bytes over 3.35 TB/s (16 experts of 5120 x 8192 W4: 335.5 MB, ~0.100 ms).
-// At the 2-D export pass (M = 512) the flops dominate.
-//
-// Design (simple and right first): one block owns a BM x BN output tile and
-// loops over K in BK steps. Each step stages the x tile as float32 and the
-// dequantized weight tile in shared memory; nibbles are unpacked and
-// scale*(q - zero) applied in registers while loading, so the weight crosses
-// device memory once in its packed form and is never stored dequantized.
-// Ragged M, N and K edges are masked at load and store time (no padded
-// copies, unlike the TPU wrapper's _pad_mkn). Left for later work: tensor
-// cores (wgmma), TMA staging, and split-K for the decode shapes, which launch
-// only ceil(N/BN) blocks; for K5, skipping capacity rows no token fills.
+// Design (simple and right first): one block owns a BM x BN output tile of
+// one expert and loops over K in BK steps. Each step stages the x tile as
+// float32 and the dequantized weight tile in shared memory; nibbles are
+// unpacked and scale*(q - zero) applied in registers while loading. Ragged
+// M, N and K edges are masked at load and store time (no padded copies,
+// unlike the TPU wrapper's _pad_mkn). Left for later work: the decode design
+// of dequant_matmul_2d.cu with an expert grid axis, tensor cores, and
+// skipping capacity rows no token fills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,11 +50,7 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// BATCHED is false for the 2-D kernels (one expert): offsetting the
-// pointers by the expert's strides at run time made K1/K2 up to 1.7x slower
-// at decode (0.051 vs 0.030 ms at M=4, K=576, N=1536 on the H100), so the
-// offsets exist only in the K5 instantiation.
-template <bool PACKED, bool BATCHED, typename T>
+template <bool PACKED, typename T>
 __global__ void __launch_bounds__(THREADS)
 dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
                       const float* __restrict__ scale,
@@ -74,7 +63,7 @@ dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
   const int rgrp = tid / BN;
   const int n = blockIdx.x * BN + col;
   const int m0 = blockIdx.y * BM;
-  if (BATCHED) {  // expert e = blockIdx.z
+  {  // expert e = blockIdx.z
     const size_t e = blockIdx.z;
     x += e * M * K;
     codes += e * (PACKED ? K / 2 : K) * N;
@@ -138,9 +127,7 @@ int launch(const void* x, const void* codes, const void* scale,
            const void* zero, void* out, int E, int M, int K, int N,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  auto kernel = E > 1 ? dequant_matmul_kernel<PACKED, true, T>
-                       : dequant_matmul_kernel<PACKED, false, T>;
-  kernel<<<grid, THREADS, 0, stream>>>(
+  dequant_matmul_kernel<PACKED, T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
       static_cast<T*>(out), M, K, N);
@@ -151,8 +138,7 @@ int launch(const void* x, const void* codes, const void* scale,
 
 // Plain C interface (bound with ctypes). x and out are float32 when bf16 == 0
 // and bfloat16 otherwise; codes uint8 (E, K/2, N) when packed, else (E, K, N);
-// scale and zero float32 (E, 1, N); all contiguous. The 2-D kernels (K1
-// packed, K2 unpacked) call it with E = 1. Runs on `stream`,
+// scale and zero float32 (E, 1, N); all contiguous. Runs on `stream`,
 // allocates nothing, and returns cudaGetLastError() after the launch.
 extern "C" int dequant_matmul_batched(const void* x, const void* codes,
                                       const void* scale, const void* zero,

@@ -16,13 +16,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dequant_matmul.cu", "flexround_quant.cu", "qmatmul_int8.cu")
+SOURCES = ("dequant_matmul.cu", "dequant_matmul_2d.cu", "flexround_quant.cu",
+           "qmatmul_int8.cu")
 
 
 def nvcc_path() -> str:
@@ -80,12 +81,15 @@ class CudaLibrary:
 
     ``functions`` maps each exported C name to its argument types; every
     function returns a ``cudaError_t`` as int, and the source also exports
-    ``<stem>_error_string(int)``.
+    ``<stem>_error_string(int)``. ``init`` names a function of no arguments
+    that runs once, right after the library loads.
     """
 
-    def __init__(self, source: str, functions: Dict[str, Sequence]):
+    def __init__(self, source: str, functions: Dict[str, Sequence],
+                 init: Optional[str] = None):
         self.source = source
         self.functions = dict(functions)
+        self.init = init
         self._lib = None
 
     def _load(self):
@@ -100,13 +104,17 @@ class CudaLibrary:
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._lib = lib
+            if self.init is not None:
+                self._check(self.init, getattr(lib, self.init)())
         return self._lib
 
     def call(self, name: str, *args) -> None:
         """Launch ``name`` and raise if the launch reported a CUDA error."""
-        lib = self._load()
-        rc = getattr(lib, name)(*args)
+        self._check(name, getattr(self._load(), name)(*args))
+
+    def _check(self, name: str, rc: int) -> None:
+        lib = self._lib
         if rc != 0:
             msg = getattr(lib, f"{Path(self.source).stem}_error_string")(rc)
-            raise RuntimeError(f"{name}: CUDA launch failed with error {rc} "
+            raise RuntimeError(f"{name}: CUDA call failed with error {rc} "
                                f"({msg.decode()})")

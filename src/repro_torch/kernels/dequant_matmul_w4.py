@@ -5,17 +5,26 @@ matmuls, and the per-expert product over stacked MoE weights), port of
     out[M, N] = x[M, K] @ (scale[1, N] * (unpack(codes)[K, N] - zero[1, N]))
     out[e] = x[e] @ (scale[e] * (unpack(codes[e]) - zero[e]))   (batched)
 
-For CUDA tensors the wrappers launch the hand-written kernel of
-``csrc/dequant_matmul.cu`` (one template over packed/unpacked codes and
-float32/bfloat16 x, with an expert grid axis); for CPU tensors they run the
-plain version in :mod:`repro_torch.kernels.ref`. A CUDA tensor never takes
-the plain version: the kernel launches or the wrapper raises. Each wrapper
-counts its launches in ``<wrapper>.launches``; the batched one also counts
-them per form in ``dequant_matmul_batched.forms`` (packed, unpacked).
+For CUDA tensors the wrappers launch hand-written kernels; for CPU tensors
+they run the plain versions in :mod:`repro_torch.kernels.ref`. A CUDA
+tensor never takes the plain version: the kernel launches or the wrapper
+raises. K1 and K2 run ``csrc/dequant_matmul_2d.cu`` in the regime that
+:func:`plan` picks from the shape: ``decode`` (bf16 x, M <= ``DECODE_MAX_M``:
+split-K, codes streamed through a cp.async ring onto the tensor cores),
+``mma`` (bf16 x, larger M: mma.sync tiles for prefill-sized M, wgmma
+above) or ``fp32`` (float32 x, any M: CUDA-core multiply-adds, kept out of
+TF32). K5 runs
+``csrc/dequant_matmul.cu``. Each wrapper counts its launches in
+``<wrapper>.launches`` and per form in ``<wrapper>.forms``: the regime for
+K1/K2, packed or unpacked codes for K5. A call that runs the split-K
+reduction pass counts as one launch.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,10 +34,126 @@ from repro_torch.kernels.build import CudaLibrary
 _LIB = CudaLibrary("dequant_matmul.cu", {
     "dequant_matmul_batched": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p]})
+_LIB_2D = CudaLibrary("dequant_matmul_2d.cu", {
+    "dequant_matmul_2d": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    + [ctypes.c_void_p], "dequant_matmul_2d_init": []},
+    init="dequant_matmul_2d_init")
 
 _MAX_GRID_Y = 65535
 _MAX_GRID_Z = 65535
-_BM = 32  # rows per block in csrc/dequant_matmul.cu
+_BM = 32  # rows per block of the K5 kernel in csrc/dequant_matmul.cu
+
+# csrc/dequant_matmul_2d.cu
+SMS = 132                # streaming multiprocessors of an H100 SXM
+DECODE_MAX_M = 8         # bf16 x with M above this takes the mma regime
+# the C entry's `kernel` and its block tile (rows of x, weight columns):
+# 1 tc_kernel<Decode>, 2 tc_kernel<MmaSmall>, 3 wg_kernel<1>, 4
+# wg_kernel<2>; 0 is fp32_kernel (FP_BM x FP_BN)
+TILES = {1: (8, 128), 2: (64, 128), 3: (128, 128), 4: (128, 256)}
+K_GRAIN = 8              # tc_kernel splits K in multiples of 8 rows
+MMA_MIN_ROWS = 256       # mma splits: their partial sums are M x N each
+MMA_SPLIT_BELOW = SMS // 2  # mma grids of fewer tiles split K
+MMA_SYNC_MAX_M = 64      # mma: mma.sync tiles up to here, wgmma above
+DECODE_BLOCKS = 2 * SMS  # decode grids split K up to this many blocks
+MAX_SPLIT_TILES = 1024   # output tiles of a split decode launch, at most
+FP_BM, FP_BN = 4, 128    # fp32_kernel block: rows of x x columns
+FP_ROW_STEP = 128        # code rows one pass of an fp32_kernel block covers
+FP_MAX_ROWS = 1024       # code rows per split: x chunk <= 32 KB of smem
+FP_MIN_ROWS = 128        # below this a split is not worth its partial sums
+FP_RED_BYTES = 8 * FP_BM * FP_BN * 4  # cross-warp reduction buffer
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K1/K2 call launches. ``rows_per_split`` counts K rows
+    (tc_kernel: decode, mma) or code rows (fp32_kernel);
+    ``workspace_bytes`` is 0 with one split."""
+    regime: str                  # "decode", "mma" or "fp32"
+    kernel: int                  # the C entry's `kernel`
+    grid: Tuple[int, int, int]   # (column tiles, row tiles, K splits)
+    rows_per_split: int
+    workspace_bytes: int
+    smem_bytes: int              # dynamic shared memory (fp32_kernel)
+    vec_codes: bool              # 16-byte code loads
+    vec_x: bool                  # 16-byte x copies (tc_kernel)
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _tc_split(K: int, base: int, target: int, min_rows: int) -> int:
+    """K rows per split of a tc_kernel grid of ``base`` tiles: enough
+    splits to reach ``target`` blocks, each of at least ``min_rows`` rows,
+    in multiples of K_GRAIN rows."""
+    splits = max(1, min(math.ceil(target / base), K // min_rows))
+    per = math.ceil(K / splits)
+    return min(K, math.ceil(per / K_GRAIN) * K_GRAIN)
+
+
+def _fp32_split(R: int, base: int) -> int:
+    """Code rows per split of fp32_kernel: about two blocks per SM over the
+    whole grid, splits of at least FP_MIN_ROWS rows; where that leaves SMs
+    idle, as many rows as put at least one block on every SM."""
+    rps = max(FP_MIN_ROWS, math.ceil(R / max(1, 2 * SMS // base)))
+    rps = min(rps, FP_MAX_ROWS)
+    if math.ceil(R / rps) * base < SMS:
+        rps = min(rps, max(1, R // math.ceil(SMS / base)))
+    return rps
+
+
+def plan(M: int, K: int, N: int, dtype: torch.dtype, packed: bool,
+         x_ptr: int = 0, codes_ptr: int = 0) -> Plan:
+    """The launch of a K1 (``packed``) or K2 call on x (M, K) of ``dtype``
+    and codes (K/2 or K, N) at the given device addresses. bf16 x: the
+    decode regime (tc_kernel's Decode tile) up to DECODE_MAX_M rows, then
+    the mma regime (tc_kernel's MmaSmall tile up to MMA_SYNC_MAX_M rows,
+    wg_kernel above); float32 x runs fp32_kernel. Pure: no device is
+    touched."""
+    if M < 1 or K < 1 or N < 1 or (packed and K % 2):
+        raise ValueError(f"dequant_matmul: no plan for M={M} K={K} N={N} "
+                         f"packed={packed}")
+    vec_codes = N % 16 == 0 and codes_ptr % 16 == 0
+    vec_x = dtype == torch.bfloat16 and K % 8 == 0 and x_ptr % 16 == 0
+    if dtype == torch.bfloat16 and M <= DECODE_MAX_M:
+        # ~2 blocks per SM, so that enough code bytes are in flight
+        regime, kernel = "decode", 1
+        gx, gy = math.ceil(N / TILES[1][1]), math.ceil(M / TILES[1][0])
+        rps = _tc_split(K, gx * gy, DECODE_BLOCKS, K_GRAIN)
+        splits, smem = math.ceil(K / rps), 0
+    elif dtype == torch.bfloat16:
+        # mma.sync 64 x 128 tiles for prefill-sized M; wgmma above, with
+        # 256 weight columns per block (each x tile then serves twice the
+        # columns) where that grid still keeps half the SMs busy; K split
+        # where the grid leaves most SMs idle
+        regime, kernel = "mma", 2
+        if M > MMA_SYNC_MAX_M:
+            wide = math.ceil(N / TILES[4][1]) * math.ceil(M / TILES[4][0])
+            kernel = 4 if wide >= MMA_SPLIT_BELOW else 3
+        gx = math.ceil(N / TILES[kernel][1])
+        gy = math.ceil(M / TILES[kernel][0])
+        rps = _tc_split(K, gx * gy, MMA_SPLIT_BELOW, MMA_MIN_ROWS)
+        splits, smem = math.ceil(K / rps), 0
+    else:
+        regime, kernel = "fp32", 0
+        R = K // 2 if packed else K
+        gx, gy = math.ceil(N / FP_BN), math.ceil(M / FP_BM)
+        rps = _fp32_split(R, gx * gy)
+        splits = math.ceil(R / rps)
+        padded = math.ceil(rps / FP_ROW_STEP) * FP_ROW_STEP
+        smem = max(padded * (2 if packed else 1) * 16, FP_RED_BYTES)
+    if gy > _MAX_GRID_Y or splits > _MAX_GRID_Z or (
+            splits > 1 and regime == "decode" and gx * gy > MAX_SPLIT_TILES):
+        raise ValueError(f"dequant_matmul: shape ({M}, {K}, {N}) exceeds the "
+                         "kernel's grid")
+    return Plan(regime=regime, kernel=kernel, grid=(gx, gy, splits),
+                rows_per_split=rps,
+                workspace_bytes=4 * splits * M * N if splits > 1 else 0,
+                smem_bytes=smem, vec_codes=vec_codes, vec_x=vec_x)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -36,9 +161,9 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"dequant_matmul: {msg}")
 
 
-def _launch(x, codes, scale, zero, packed: bool) -> torch.Tensor:
-    """One launch over E experts: x (E, M, K), codes (E, K/2 or K, N),
-    scale/zero (E, 1, N); the 2-D kernels pass E = 1."""
+def _validate(x, codes, scale, zero, packed: bool) -> None:
+    """x (E, M, K), codes (E, K/2 or K, N), scale/zero (E, 1, N) on one
+    card, contiguous."""
     _check(x.dim() == 3 and codes.dim() == 3, "x and codes must be "
            "(E, M, K) and (E, K/2 or K, N)")
     E, M, K = x.shape
@@ -58,9 +183,17 @@ def _launch(x, codes, scale, zero, packed: bool) -> torch.Tensor:
     for nm, t in (("x", x), ("codes", codes), ("scale", scale), ("zero", zero)):
         _check(t.is_cuda and t.device == x.device, f"{nm} is not on {x.device}")
         _check(t.is_contiguous(), f"{nm} is not contiguous")
-    _check(E <= _MAX_GRID_Z and M <= _MAX_GRID_Y * _BM and K < 2**31
-           and N < 2**31, f"shape ({E}, {M}, {K}, {N}) exceeds the kernel's "
-           "grid")
+    _check(K < 2**31 and N < 2**31 and M * N < 2**31,
+           f"shape ({E}, {M}, {K}, {N}) exceeds the kernels' int indices")
+
+
+def _launch(x, codes, scale, zero, packed: bool) -> torch.Tensor:
+    """K5: one launch over E experts (none for an empty output)."""
+    _validate(x, codes, scale, zero, packed)
+    E, M, K = x.shape
+    N = codes.shape[2]
+    _check(E <= _MAX_GRID_Z and M <= _MAX_GRID_Y * _BM,
+           f"shape ({E}, {M}, {K}, {N}) exceeds the kernel's grid")
     out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if E == 0 or M == 0 or N == 0:
         return out
@@ -71,9 +204,48 @@ def _launch(x, codes, scale, zero, packed: bool) -> torch.Tensor:
     return out
 
 
-def _launch_2d(x, codes, scale, zero, packed: bool) -> torch.Tensor:
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The split counters of the decode kernel on ``device``: zero, and
+    left zero by every launch; allocated once, at the first split call on
+    the device, which must not lie inside a CUDA-graph capture."""
+    if device not in _COUNTERS:
+        _COUNTERS[device] = torch.zeros(MAX_SPLIT_TILES, dtype=torch.int32,
+                                        device=device)
+    return _COUNTERS[device]
+
+
+def _launch_2d(fn, x, codes, scale, zero, packed: bool) -> torch.Tensor:
+    """K1/K2: one call as :func:`plan` lays it out, counted on ``fn``; the
+    split-K workspace comes from ``torch.empty`` (graph-capture safe), the
+    split counters are allocated once per device."""
     _check(x.dim() == 2 and codes.dim() == 2, "x and codes must be 2-D")
-    return _launch(x[None], codes[None], scale[None], zero[None], packed)[0]
+    _validate(x[None], codes[None], scale[None], zero[None], packed)
+    M, K = x.shape
+    N = codes.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    p = plan(M, K, N, x.dtype, packed, x.data_ptr(), codes.data_ptr())
+    ws = torch.empty((p.workspace_bytes // 4,), dtype=torch.float32,
+                     device=x.device) if p.splits > 1 else None
+    counters = (_counters(x.device) if p.splits > 1 and p.regime == "decode"
+                else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _LIB_2D.call("dequant_matmul_2d", x.data_ptr(), codes.data_ptr(),
+                 scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+                 0 if ws is None else ws.data_ptr(),
+                 0 if counters is None else counters.data_ptr(), M, K, N,
+                 int(packed), p.kernel, int(p.vec_x), int(p.vec_codes),
+                 p.grid[0], p.grid[1], p.splits, p.rows_per_split,
+                 p.smem_bytes, stream)
+    fn.launches += 1
+    fn.forms[p.regime] += 1
+    return out
 
 
 def dequant_matmul_w4(x, codes, scale, zero):
@@ -81,9 +253,7 @@ def dequant_matmul_w4(x, codes, scale, zero):
     scale/zero (1, N) float32. Returns (M, N) in x's dtype."""
     if x.device.type == "cpu":
         return ref.dequant_matmul_w4_ref(x, codes, scale, zero)
-    out = _launch_2d(x, codes, scale, zero, packed=True)
-    dequant_matmul_w4.launches += 1
-    return out
+    return _launch_2d(dequant_matmul_w4, x, codes, scale, zero, packed=True)
 
 
 def dequant_matmul_w8(x, codes, scale, zero):
@@ -91,9 +261,7 @@ def dequant_matmul_w8(x, codes, scale, zero):
     (1, N) float32. Weight-only int8 serving and odd-K sub-8-bit weights."""
     if x.device.type == "cpu":
         return ref.dequant_matmul_w8_ref(x, codes, scale, zero)
-    out = _launch_2d(x, codes, scale, zero, packed=False)
-    dequant_matmul_w8.launches += 1
-    return out
+    return _launch_2d(dequant_matmul_w8, x, codes, scale, zero, packed=False)
 
 
 def dequant_matmul_batched(x, codes, scale, zero, packed: bool):
@@ -103,12 +271,16 @@ def dequant_matmul_batched(x, codes, scale, zero, packed: bool):
     if x.device.type == "cpu":
         return ref.dequant_matmul_batched_ref(x, codes, scale, zero, packed)
     out = _launch(x, codes, scale, zero, packed=packed)
+    if out.numel() == 0:
+        return out
     dequant_matmul_batched.launches += 1
     dequant_matmul_batched.forms["packed" if packed else "unpacked"] += 1
     return out
 
 
 dequant_matmul_w4.launches = 0
+dequant_matmul_w4.forms = {"decode": 0, "mma": 0, "fp32": 0}
 dequant_matmul_w8.launches = 0
+dequant_matmul_w8.forms = {"decode": 0, "mma": 0, "fp32": 0}
 dequant_matmul_batched.launches = 0
 dequant_matmul_batched.forms = {"packed": 0, "unpacked": 0}

@@ -13,9 +13,10 @@ device of the tensors:
 names of ``analysis/diffcheck.py:EXPECTED_KERNELS`` in the reference (the
 plain versions carry a ``_ref`` suffix; a weight with more than one batch
 dim is dequantized, ``dequantize-fallback``). ``launch_counts`` and
-``reset_launch_counts`` read and zero the per-kernel launch counters; K5's
-two forms count apart as ``dequant_matmul_batched[packed]`` and
-``[unpacked]``.
+``reset_launch_counts`` read and zero the per-kernel launch counters and
+their forms: the regime K1 and K2 took (``dequant_matmul_w4[decode]``,
+``[mma]``, ``[fp32]``, the same for ``dequant_matmul_w8``) and K5's codes
+(``dequant_matmul_batched[packed]``, ``[unpacked]``).
 """
 from __future__ import annotations
 

@@ -178,6 +178,9 @@ def test_launch_counters_list_every_kernel():
     assert set(counts) == {
         "dequant_matmul_w4", "dequant_matmul_w8", "qmatmul_int8",
         "flexround_quant", "dequant_matmul_batched",
+        "dequant_matmul_w4[decode]", "dequant_matmul_w4[mma]",
+        "dequant_matmul_w4[fp32]", "dequant_matmul_w8[decode]",
+        "dequant_matmul_w8[mma]", "dequant_matmul_w8[fp32]",
         "dequant_matmul_batched[packed]", "dequant_matmul_batched[unpacked]"}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
