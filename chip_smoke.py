@@ -465,19 +465,17 @@ def kernels_phase(torch):
                 rows.append(check_int8(torch, k3, ref, M, K, N, gen,
                                        timed=True))
     # ragged M, N and K tiles and x and codes off their 16-byte alignment,
-    # on every kernel: bf16 M=7 decode, M=40 mma.sync, M=130 wgmma (128
-    # and, at N=8200, 256 weight columns per block); float32 x
-    for M, N in ((7, 200), (40, 200), (130, 200), (130, 8200)):
+    # on every kernel: bf16 M=7 decode, M=40 and M=130 (two row tiles)
+    # wgmma; float32 x
+    for M in (7, 40, 130):
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4", M,
-                                      578, N, dtype, gen, False))
+                                      578, 200, dtype, gen, False))
             rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w8", M,
-                                      577, N, dtype, gen, False))
-            if N == 200:
-                for name in k12_names:
-                    rows.append(check_dequant(torch, k12, ref, name, M, 576,
-                                              1536, dtype, gen, False,
-                                              misalign=True))
+                                      577, 200, dtype, gen, False))
+            for name in k12_names:
+                rows.append(check_dequant(torch, k12, ref, name, M, 576, 1536,
+                                          dtype, gen, False, misalign=True))
     rows.append(check_int8(torch, k3, ref, 7, 577, 200, gen, timed=False))
     # llama4-scout's 2-D sites: decode, prefill and export
     for M in (4, 16, 512):

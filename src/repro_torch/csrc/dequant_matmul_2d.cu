@@ -28,25 +28,22 @@
 //
 // decode (bf16 x, M <= 8) is bound by the weight's bytes (2*M flops per
 //   code byte, far below the ~295 flops per byte at which an H100 stops
-//   being memory bound). tc_kernel with the Decode tile: 8 rows x 128
-//   columns, K steps of 128 rows (packed) or 64, a 4-stage cp.async ring:
-//   each thread copies 16 bytes of codes along N per request (16 columns,
-//   2 K rows when packed), three stages in flight; (q - zero) is built as
-//   bf16 in registers from the staged bytes (a byte permute and a mask per
-//   nibble pair) and multiplied on the tensor cores (mma.sync.m16n8k16,
-//   16 weight columns as the 16-row operand and the 8 rows of x as the
-//   8-column one), so unpacking is the only per-weight work on the CUDA
-//   cores. K is split over blockIdx.z
-//   so that every decode grid puts at least one block on each of the 132
-//   SMs (about two); the last block of each output tile adds the splits.
-// mma (bf16 x, M > 8; bound by operations at M = 512). Up to 64 rows
-//   (prefill): tc_kernel with the MmaSmall tile (64 x 128, K steps of 64,
-//   a 4-stage ring, mma.sync). Above: wg_kernel, on wgmma (m64n128k16)
-//   with the weight as the register operand, built by the same unpacking,
-//   and x read by the tensor cores straight from shared memory; 128 rows of
-//   x by 128 or 256 weight columns per block; the blocks of 256 columns
-//   move half the x bytes from L2 per product.
-//   Either splits K when its grid leaves most SMs idle.
+//   being memory bound). dec_kernel: 8 rows x 128 columns per block, K
+//   steps of 128 rows (packed) or 64, a 4-stage cp.async ring: each thread
+//   copies 16 bytes of codes along N per request (16 columns, 2 K rows when
+//   packed), three stages in flight; (q - zero) is built as bf16 in
+//   registers from the staged bytes (a byte permute and a mask per nibble
+//   pair) and multiplied on the tensor cores (mma.sync.m16n8k16, 16 weight
+//   columns as the 16-row operand and the 8 rows of x as the 8-column
+//   one), so unpacking is the only per-weight work on the CUDA cores. K is
+//   split over blockIdx.z so that every decode grid puts at least one
+//   block on each of the 132 SMs (about two); the last block of each
+//   output tile adds the splits.
+// mma (bf16 x, M > 8; bound by operations at M = 512). wg_kernel: wgmma
+//   (m64n128k16) with the weight as the register operand, built by the
+//   same unpacking, and x read by the tensor cores straight from shared
+//   memory in the 128-byte swizzle; 128 rows of x by 128 weight columns per
+//   block, two blocks per SM, K split when the grid leaves most SMs idle.
 // fp32 (float32 x, any M: the checks and the CPU-parity lattices; TF32
 //   would break their tolerance) stays on CUDA cores: fp32_kernel streams
 //   the codes with 16-byte loads, 4 rows of x per block from shared
@@ -253,11 +250,6 @@ template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
 __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
                                             const void* p) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -280,16 +272,9 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return as_u32(__floats2bfloat162_rn(lo, hi));
 }
-// NB (2 or 4) consecutive code bytes of one smem row, little-endian in w
-template <int NB>
-__device__ __forceinline__ void load_bytes(uint32_t (&w)[(NB + 3) / 4],
-                                           const uint8_t* p) {
-  static_assert(NB == 2 || NB == 4, "a warp's B columns: 2 or 4 per thread");
-  if constexpr (NB == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    w[0] = *reinterpret_cast<const uint16_t*>(p);
-  }
+// Two consecutive code bytes of one smem row, in the low half of a word.
+__device__ __forceinline__ uint32_t load_u16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
 }
 
 // The B fragment of half step h (rows kk, kk + 1 of the thread's NJ
@@ -332,78 +317,62 @@ __device__ __forceinline__ void build_b(uint32_t (&b)[NJ][2], int h,
   }
 }
 
-// A tc_kernel configuration: block tile BM x BN, K steps of BK_P (packed)
-// or BK_U (unpacked) rows, an ST-deep cp.async ring, 8 warps with WM along
-// M; FIXUP: a split launch is reduced by its last block per tile (else by
-// the second pass).
-template <int BM_, int BN_, int WM_, int BK_P, int BK_U, int ST_, int MINB_,
-          bool FIXUP_>
-struct Cfg {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, ST = ST_, MINB = MINB_;
-  static constexpr bool FIXUP = FIXUP_;
-  __host__ __device__ static constexpr int bk(bool packed) { return packed ? BK_P : BK_U; }
-  __host__ __device__ static constexpr int nj() { return BN / ((THREADS / 32) / WM) / 8; }
-  // code row bytes: padded so that a warp's B-byte reads hit distinct banks
-  __host__ __device__ static constexpr int cs_stride(bool packed) {
-    return BN + (packed ? 8 * nj() : 16);
-  }
-  __host__ __device__ static constexpr int x_bytes(bool packed) {
-    return ST * BM * (bk(packed) + 8) * 2;
-  }
-  __host__ __device__ static constexpr int smem(bool packed) {
-    return x_bytes(packed)
-        + ST * (packed ? bk(packed) / 2 : bk(packed)) * cs_stride(packed);
-  }
-};
+// The decode tile: 8 rows of x by 128 weight columns, K steps of 128 rows
+// (packed) or 64, a 4-stage cp.async ring, 8 warps of 16 columns each.
+constexpr int DEC_BM = 8;
+constexpr int DEC_BN = 128;
+constexpr int DEC_ST = 4;
+constexpr int DEC_CS = DEC_BN + 16;  // code row bytes: conflict-free B reads
+__host__ __device__ constexpr int dec_bk(bool packed) {
+  return packed ? 128 : 64;
+}
+__host__ __device__ constexpr int dec_x_bytes(bool packed) {
+  return DEC_ST * DEC_BM * (dec_bk(packed) + 8) * 2;  // rows padded 16 bytes
+}
+__host__ __device__ constexpr int dec_smem(bool packed) {
+  return dec_x_bytes(packed)
+         + DEC_ST * (packed ? dec_bk(packed) / 2 : dec_bk(packed)) * DEC_CS;
+}
 
-// Dynamic shared memory of tc_kernel: the x ring, then the code ring.
+// Dynamic shared memory of the tensor-core kernels: the x ring, then the
+// code ring.
 extern __shared__ __align__(16) uint8_t tc_smem[];
 
-// Block tile C::BM x C::BN, 8 warps. The warp's NJ n8 tiles are
-// interleaved: logical column c of tile j is column c * NJ + j of the
-// warp's slice, so each thread reads its NJ B columns as one load of
-// consecutive code bytes (build_b turns them into bf16 (q - zero)). BM == 8
-// (decode): the operands swap, the warp's 16 weight columns being the m16
-// operand and the 8 rows of x the n8 one, so no row is padding. The
-// fragments of each k16 step load while the previous step's B is built
-// and its products issue. Blocks along z take k_per_split K rows each (a
-// multiple of 8). With C::FIXUP the last block
-// of an output tile to finish adds the tile's float32 partial sums in
-// split order and resets its counter, so the split launch needs no second
-// pass and its result does not depend on the order the blocks ran in.
-template <class C, bool PACKED, bool VEC_X, bool VEC_C>
-__global__ void __launch_bounds__(THREADS, C::MINB)
-tc_kernel(const __nv_bfloat16* __restrict__ x,
-          const uint8_t* __restrict__ codes, const float* __restrict__ scale,
-          const float* __restrict__ zero, __nv_bfloat16* __restrict__ out,
-          float* __restrict__ ws, int* __restrict__ counters, int M, int K,
-          int N, int k_per_split) {
-  constexpr int BM = C::BM, BN = C::BN, ST = C::ST;
-  constexpr int BK = C::bk(PACKED);
-  constexpr bool A8 = BM == 8;
-  constexpr int WN = (THREADS / 32) / C::WM;
-  constexpr int MI = A8 ? 1 : BM / C::WM / 16;  // m16 tiles per warp
-  constexpr int NJ = C::nj();                    // n8 tiles per warp
+// The decode regime. Warp w owns weight columns 16 w .. 16 w + 15 of the
+// block, interleaved so that each thread's two columns (2g, 2g + 1) are
+// adjacent code bytes (build_b turns them into bf16 (q - zero)); they are
+// the 16-row operand of mma.m16n8k16 and the 8 rows of x the 8-column one,
+// so no row of the product is padding. The fragments of each k16 step load
+// while the previous step's B is built and its product issues. Blocks
+// along z take k_per_split K rows each (a multiple of 8); the last block of
+// an output tile to finish adds the tile's float32 partial sums in split
+// order and resets its counter, so a split launch needs no second pass and
+// its result does not depend on the order the blocks ran in.
+template <bool PACKED, bool VEC_X, bool VEC_C>
+__global__ void __launch_bounds__(THREADS, 4)
+dec_kernel(const __nv_bfloat16* __restrict__ x,
+           const uint8_t* __restrict__ codes, const float* __restrict__ scale,
+           const float* __restrict__ zero, __nv_bfloat16* __restrict__ out,
+           float* __restrict__ ws, int* __restrict__ counters, int M, int K,
+           int N, int k_per_split) {
+  constexpr int BK = dec_bk(PACKED);
+  constexpr int KS = BK / 16;                    // k16 steps per tile
   constexpr int XS = BK + 8;                     // x row, 16 bytes padded
   constexpr int CROWS = PACKED ? BK / 2 : BK;
-  constexpr int CS = C::cs_stride(PACKED);
+  constexpr int CS = DEC_CS;
   constexpr int XCH = BK / 8;                    // 16-byte chunks per x row
-  constexpr int CCH = BN / 16;                   // 16-byte chunks per code row
-  constexpr int NW = (NJ + 3) / 4;               // code words per row load
-  static_assert(!A8 || NJ == 2, "the decode tile gives each warp 16 columns");
-  constexpr int CW = PACKED ? NW : 2 * NW;       // code words per half step
+  constexpr int CCH = DEC_BN / 16;               // 16-byte chunks per code row
+  constexpr int CW = PACKED ? 1 : 2;             // code words per half step
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  uint8_t* cs = tc_smem + C::x_bytes(PACKED);
+  uint8_t* cs = tc_smem + dec_x_bytes(PACKED);
   __shared__ int last_block;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm0 = A8 ? 0 : (warp / WN) * (BM / C::WM);  // warp's first row
-  const int wn0 = (warp % WN) * (BN / WN);             // warp's first column
+  const int wn0 = (tid / 32) * 16;               // warp's first column
   const int g = lane / 4;
   const int t = lane % 4;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * DEC_BM;
+  const int n0 = blockIdx.x * DEC_BN;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int rend = PACKED ? kend / 2 : kend;  // K and kend are even if PACKED
@@ -411,11 +380,11 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
 
   auto load_tile = [&](int stage, int kt) {
     const int k0 = kbeg + kt * BK;
-    for (int i = tid; i < BM * XCH; i += THREADS) {
+    for (int i = tid; i < DEC_BM * XCH; i += THREADS) {
       const int r = i / XCH;
       const int k = k0 + (i % XCH) * 8;
       const int gm = m0 + r;
-      __nv_bfloat16* dst = xs + (stage * BM + r) * XS + (i % XCH) * 8;
+      __nv_bfloat16* dst = xs + (stage * DEC_BM + r) * XS + (i % XCH) * 8;
       if (VEC_X) {  // K % 8 == 0: a chunk lies wholly inside or past kend
         const bool ok = gm < M && k < kend;
         cp_async16(dst, ok ? static_cast<const void*>(x + (size_t)gm * K + k)
@@ -446,142 +415,89 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  float acc[MI][NJ][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-  // per B column of the thread: 2^23 + zero (unpacked) or bf16x2
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // per column of the thread: 2^23 + zero (unpacked) or bf16x2
   // {128 + zero, 128 + zero} (packed)
-  float zoff[NJ];
-  uint32_t zb[NJ];
+  float zoff[2];
+  uint32_t zb[2];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = n0 + wn0 + g * NJ + j;
+  for (int j = 0; j < 2; ++j) {
+    const int n = n0 + wn0 + g * 2 + j;
     const float z = n < N ? zero[n] : 0.0f;
     zoff[j] = 8388608.0f + z;
     zb[j] = pack_bf16x2(128.0f + z, 128.0f + z);
   }
 
-  // A fragments (ldmatrix) and the raw B code words of k16 step ks; the
-  // words hold the thread's NJ columns of rows kk (and kk + 1 unpacked)
-  auto load_frags = [&](uint32_t (&a)[MI][4], uint32_t (&cw)[2][CW],
+  // x fragments (ldmatrix, rows 0-7) and the raw code words of k16 step
+  // ks: rows kk (and kk + 1 unpacked) of the thread's two columns
+  auto load_frags = [&](uint32_t (&a)[2], uint32_t (&cw)[2][CW],
                         const __nv_bfloat16* xt, const uint8_t* ct, int ks) {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      if (A8) {
-        ldmatrix_x2(a[mi][0], a[mi][2],
-                    xt + (lane % 8) * XS + ks * 16 + ((lane / 8) % 2) * 8);
-        a[mi][1] = a[mi][3] = 0u;
-      } else {
-        ldmatrix_x4(a[mi], xt + (wm0 + mi * 16 + lane % 16) * XS
-                               + ks * 16 + (lane / 16) * 8);
-      }
-    }
+    ldmatrix_x2(a[0], a[1], xt + (lane % 8) * XS + ks * 16 + ((lane / 8) % 2) * 8);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int kk = ks * 16 + h * 8 + 2 * t;
-      if (PACKED) {
-        load_bytes<NJ>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][0]),
-                       ct + (kk / 2) * CS);
-      } else {
-        load_bytes<NJ>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][0]),
-                       ct + kk * CS);
-        load_bytes<NJ>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][NW]),
-                       ct + (kk + 1) * CS);
-      }
+      cw[h][0] = load_u16(ct + (PACKED ? kk / 2 : kk) * CS);
+      if (!PACKED) cw[h][CW - 1] = load_u16(ct + (kk + 1) * CS);
     }
   };
 
 #pragma unroll
-  for (int s = 0; s < ST - 1; ++s) {
+  for (int s = 0; s < DEC_ST - 1; ++s) {
     if (s < ntiles) load_tile(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < ntiles; ++kt) {
-    cp_async_wait<ST - 2>();
+    cp_async_wait<DEC_ST - 2>();
     __syncthreads();  // tile kt landed; the stage refilled below is drained
     {
-      const int nt = kt + ST - 1;
-      if (nt < ntiles) load_tile(nt % ST, nt);
+      const int nt = kt + DEC_ST - 1;
+      if (nt < ntiles) load_tile(nt % DEC_ST, nt);
       cp_async_commit();
     }
-    const int st = kt % ST;
-    const __nv_bfloat16* xt = xs + st * BM * XS;
-    const uint8_t* ct = cs + st * CROWS * CS + wn0 + g * NJ;
+    const int st = kt % DEC_ST;
+    const __nv_bfloat16* xt = xs + st * DEC_BM * XS;
+    const uint8_t* ct = cs + st * CROWS * CS + wn0 + g * 2;
     const int k0 = kbeg + kt * BK;
     const bool edge = k0 + BK > kend;
-    // fragments of step ks + 1 load while step ks builds its B and runs
-    // its products: A by ldmatrix, the B code words by plain loads
-    uint32_t a[2][MI][4];
+    uint32_t a[2][2];
     uint32_t cw[2][2][CW];
     load_frags(a[0], cw[0], xt, ct, 0);
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      if (ks + 1 < BK / 16) load_frags(a[(ks + 1) % 2], cw[(ks + 1) % 2], xt, ct, ks + 1);
-      uint32_t b[NJ][2];
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks + 1 < KS) load_frags(a[(ks + 1) % 2], cw[(ks + 1) % 2], xt, ct, ks + 1);
+      uint32_t b[2][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int kk = ks * 16 + h * 8 + 2 * t;  // tile row of the low half
-        build_b<NJ, PACKED>(b, h, cw[ks % 2][h], zb, zoff);
+        build_b<2, PACKED>(b, h, cw[ks % 2][h], zb, zoff);
         if (edge) {  // the last partial tile: (q - zero) is 0 past kend
           const uint32_t keep = (k0 + kk >= kend ? 0u : 0xFFFFu)
                                 | (k0 + kk + 1 >= kend ? 0u : 0xFFFF0000u);
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) b[j][h] &= keep;
+          b[0][h] &= keep;
+          b[1][h] &= keep;
         }
       }
-      if constexpr (A8) {
-        // the weight is the m16 operand (its 16 columns: the warp's two
-        // interleaved n8 tiles) and the 8 rows of x the n8 one, so no row
-        // of the product is padding: D[c][m] = out[m][column c]
-        const uint32_t wa[4] = {b[0][0], b[1][0], b[0][1], b[1][1]};
-        mma_bf16(acc[0][0], wa, a[ks % 2][0][0], a[ks % 2][0][2]);
-      } else {
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            mma_bf16(acc[mi][j], a[ks % 2][mi], b[j][0], b[j][1]);
-          }
-      }
+      // rows g / g + 8 of the warp's 16 columns: columns 2g / 2g + 1
+      const uint32_t wa[4] = {b[0][0], b[1][0], b[0][1], b[1][1]};
+      mma_bf16(acc, wa, a[ks % 2][0], a[ks % 2][1]);
     }
   }
   cp_async_wait<0>();
 
+  // acc[e] = out[m0 + 2t + (e & 1)][column 2g + (e >> 1) of the warp]
   const bool split = gridDim.z > 1;
-  auto put = [&](int row, int n, float v) {
-    if (row >= M || n >= N) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = m0 + 2 * t + (e & 1);
+    const int n = n0 + wn0 + g * 2 + (e >> 1);
+    if (row >= M || n >= N) continue;
     if (!split) {
-      out[(size_t)row * N + n] = __float2bfloat16_rn(scale[n] * v);
+      out[(size_t)row * N + n] = __float2bfloat16_rn(scale[n] * acc[e]);
     } else {
-      ws[((size_t)blockIdx.z * M + row) * N + n] = v;
-    }
-  };
-  if constexpr (A8) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      put(m0 + 2 * t + (e & 1), n0 + wn0 + g * NJ + (e >> 1), acc[0][0][e]);
-    }
-  } else {
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int h = 0; h < (A8 ? 1 : 2); ++h) {
-        const int row = m0 + wm0 + mi * 16 + g + h * 8;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          put(row, n0 + wn0 + (2 * t + e) * NJ + j, acc[mi][j][h * 2 + e]);
-        }
-      }
+      ws[((size_t)blockIdx.z * M + row) * N + n] = acc[e];
     }
   }
-  }
-  if (!C::FIXUP || !split) return;
+  if (!split) return;
   __threadfence();  // this block's partial sums, visible before the count
   __syncthreads();
   if (tid == 0) {
@@ -594,10 +510,10 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
   __threadfence();
   const int Z = gridDim.z;
 #pragma unroll
-  for (int it = 0; it < BM * BN / THREADS; ++it) {
+  for (int it = 0; it < DEC_BM * DEC_BN / THREADS; ++it) {
     const int i = it * THREADS + tid;
-    const int row = m0 + i / BN;
-    const int n = n0 + i % BN;
+    const int row = m0 + i / DEC_BN;
+    const int n = n0 + i % DEC_BN;
     if (row >= M || n >= N) continue;
     const float* p = ws + (size_t)row * N + n;
     const size_t step = (size_t)M * N;
@@ -613,7 +529,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Second pass of a split tc_kernel launch without FIXUP: bf16 output.
+// Second pass of a split wg_kernel launch: bf16 output.
 __global__ void __launch_bounds__(THREADS)
 reduce_splits_bf16_kernel(const float* __restrict__ ws,
                           const float* __restrict__ scale,
@@ -661,72 +577,66 @@ template <int PENDING>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
 }
-// Shared-memory matrix descriptor without swizzle: start address, LBO (the
-// byte step between 8 x 16-byte core matrices along K) and SBO (along the
-// other dimension), all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8), 8-row groups 1024 bytes apart (SBO); the start address
+// steps 32 bytes per k16 step inside the row. The group base is 1024-byte
+// aligned.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
   const uint64_t addr = static_cast<uint64_t>(__cvta_generic_to_shared(p));
-  return ((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32);
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32)
+         | (1ull << 62);
 }
 
 constexpr int WG_BM = 128;  // rows of x per block: the wgmma's N
 constexpr int WG_BK = 64;
 constexpr int WG_ST = 4;    // ring stages; two tiles ahead in flight
-// weight columns per block: 2 warpgroups x MT m64 tiles
-__host__ __device__ constexpr int wg_bn(int mt) { return 128 * mt; }
+constexpr int WG_BN = 128;  // weight columns per block: 2 warpgroups x 64
+constexpr int WG_CS = WG_BN + 16;  // code row bytes, padded
 __host__ __device__ constexpr int wg_code_rows(bool packed) {
   return packed ? WG_BK / 2 : WG_BK;
-}
-__host__ __device__ constexpr int wg_cs_stride(int mt) {
-  return wg_bn(mt) + 16;
 }
 __host__ __device__ constexpr int wg_x_bytes() {
   return WG_ST * WG_BM * WG_BK * 2;
 }
-__host__ __device__ constexpr int wg_smem(int mt, bool packed) {
-  return wg_x_bytes() + WG_ST * wg_code_rows(packed) * wg_cs_stride(mt);
+__host__ __device__ constexpr int wg_smem(bool packed) {
+  return wg_x_bytes() + WG_ST * wg_code_rows(packed) * WG_CS;
 }
 
 // The mma regime on wgmma: the weight is the M operand. Warp w of
-// warpgroup wg owns 16 weight columns of each of the warpgroup's MT m64
-// tiles and builds their (q - zero) as bf16 A fragments in registers with
-// build_b, exactly as the decode tile does; x, the B operand, is copied by
-// cp.async into 8-row x 16-byte core matrices (K-major, no swizzle) and
-// read by the tensor cores through a descriptor, with no register copy.
-// The x tile of a block is shared by its 128 * MT weight columns, so the
-// x bytes the card moves from L2 for the product fall as 1 / MT. Per 64-row K tile a warpgroup issues 4 * MT wgmma
-// (m64n128k16) as one group and lets it run while it builds the next
-// tile's fragments; a stage is refilled only after the groups that read it
-// have completed.
-template <int MT, bool PACKED, bool VEC_X, bool VEC_C>
-__global__ void __launch_bounds__(THREADS, 1)
+// warpgroup wg owns weight columns 64 wg + 16 w .. + 15 and builds their
+// (q - zero) as bf16 A fragments in registers with build_b, exactly as the
+// decode tile does; x, the B operand, is copied by cp.async into 128-byte
+// rows in the 128-byte swizzle (K-major; without it the tensor cores'
+// shared-memory reads conflict) and read by the tensor cores through a
+// descriptor, with no register copy. Per 64-row K tile a warpgroup issues
+// 4 wgmma (m64n128k16) as one group and lets it run while it builds the
+// next tile's fragments; a stage is refilled only after the groups that
+// read it have completed. Two blocks share an SM.
+template <bool PACKED, bool VEC_X, bool VEC_C>
+__global__ void __launch_bounds__(THREADS, 2)
 wg_kernel(const __nv_bfloat16* __restrict__ x,
           const uint8_t* __restrict__ codes, const float* __restrict__ scale,
           const float* __restrict__ zero, __nv_bfloat16* __restrict__ out,
           float* __restrict__ ws, int M, int K, int N, int k_per_split) {
-  constexpr int BN = wg_bn(MT);
   constexpr int KS = WG_BK / 16;          // k16 steps per tile
   constexpr int CROWS = wg_code_rows(PACKED);
-  constexpr int CS = wg_cs_stride(MT);
+  constexpr int CS = WG_CS;
   constexpr int XCH = WG_BK / 8;          // 16-byte chunks per x row
-  constexpr int CCH = BN / 16;
+  constexpr int CCH = WG_BN / 16;
   constexpr int XST = WG_BM * WG_BK;      // x elements per stage
-  constexpr int CORE = 64;                // elements per 8 x 16-byte core matrix
-  constexpr int NW = 1;                   // code words per row load (2 bytes)
-  constexpr int CW = PACKED ? NW : 2 * NW;
+  constexpr int CW = PACKED ? 1 : 2;      // code words per half step
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   uint8_t* cs = tc_smem + wg_x_bytes();
+  if (__cvta_generic_to_shared(xs) % 1024 != 0) __trap();  // swizzle atoms
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  // the warp's first column in m64 tile mt: wcol + 64 * mt
-  const int wcol = (warp / 4) * 64 * MT + (warp % 4) * 16;
+  const int wcol = (warp / 4) * 64 + (warp % 4) * 16;  // warp's first column
   const int g = lane / 4;
   const int t = lane % 4;
   const int m0 = blockIdx.y * WG_BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * WG_BN;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int rend = PACKED ? kend / 2 : kend;
@@ -739,9 +649,8 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
       const int c = i % XCH;
       const int k = k0 + c * 8;
       const int gm = m0 + r;
-      // core matrix (k chunk c, rows r / 8), its row r % 8
-      __nv_bfloat16* dst = xs + stage * XST
-                           + (c * (WG_BM / 8) + r / 8) * CORE + (r % 8) * 8;
+      // row r, 16-byte chunk c at chunk c ^ (r % 8) (128-byte swizzle)
+      __nv_bfloat16* dst = xs + stage * XST + r * WG_BK + ((c ^ (r % 8)) * 8);
       if (VEC_X) {
         const bool ok = gm < M && k < kend;
         cp_async16(dst, ok ? static_cast<const void*>(x + (size_t)gm * K + k)
@@ -772,24 +681,19 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  float acc[MT][64];
+  float acc[64];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  float zoff[2];
+  uint32_t zb[2];
 #pragma unroll
-    for (int e = 0; e < 64; ++e) acc[mt][e] = 0.0f;
-  float zoff[MT][2];
-  uint32_t zb[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + wcol + 64 * mt + g * 2 + j;
-      const float z = n < N ? zero[n] : 0.0f;
-      zoff[mt][j] = 8388608.0f + z;
-      zb[mt][j] = pack_bf16x2(128.0f + z, 128.0f + z);
-    }
+  for (int j = 0; j < 2; ++j) {
+    const int n = n0 + wcol + g * 2 + j;
+    const float z = n < N ? zero[n] : 0.0f;
+    zoff[j] = 8388608.0f + z;
+    zb[j] = pack_bf16x2(128.0f + z, 128.0f + z);
   }
-  uint32_t af0[MT][KS][4] = {}, af1[MT][KS][4] = {};
+  uint32_t af0[KS][4] = {}, af1[KS][4] = {};
 
 #pragma unroll
   for (int s = 0; s < 2; ++s) {  // two tiles ahead
@@ -798,64 +702,51 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
   }
   // one K tile: af receives its A fragments; prev holds the previous
   // tile's, in flight until this tile's wait
-  auto tile = [&](int kt, uint32_t (&af)[MT][KS][4],
-                  uint32_t (&prev)[MT][KS][4]) {
+  auto tile = [&](int kt, uint32_t (&af)[KS][4], uint32_t (&prev)[KS][4]) {
     cp_async_wait<1>();
-    __syncthreads();  // tile kt landed; tile kt - 2's wgmma groups are done
+    __syncthreads();  // tile kt landed; tile kt - 2's wgmma group is done
     if (kt + 2 < ntiles) load_tile((kt + 2) % WG_ST, kt + 2);
     cp_async_commit();
     const int st = kt % WG_ST;
     const int k0 = kbeg + kt * WG_BK;
     const bool edge = k0 + WG_BK > kend;
+    const uint8_t* ct = cs + st * CROWS * CS + wcol + g * 2;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const uint8_t* ct = cs + st * CROWS * CS + wcol + 64 * mt + g * 2;
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t cw[2][CW];
+      uint32_t b[2][2];
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t cw[2][CW];
-        uint32_t b[2][2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kk = ks * 16 + h * 8 + 2 * t;
-          if (PACKED) {
-            load_bytes<2>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][0]), ct + (kk / 2) * CS);
-          } else {
-            load_bytes<2>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][0]), ct + kk * CS);
-            load_bytes<2>(*reinterpret_cast<uint32_t(*)[NW]>(&cw[h][NW]), ct + (kk + 1) * CS);
-          }
-          build_b<2, PACKED>(b, h, cw[h], zb[mt], zoff[mt]);
-          if (edge) {
-            const uint32_t keep = (k0 + kk >= kend ? 0u : 0xFFFFu)
-                                  | (k0 + kk + 1 >= kend ? 0u : 0xFFFF0000u);
-            b[0][h] &= keep;
-            b[1][h] &= keep;
-          }
+      for (int h = 0; h < 2; ++h) {
+        const int kk = ks * 16 + h * 8 + 2 * t;
+        cw[h][0] = load_u16(ct + (PACKED ? kk / 2 : kk) * CS);
+        if (!PACKED) cw[h][CW - 1] = load_u16(ct + (kk + 1) * CS);
+        build_b<2, PACKED>(b, h, cw[h], zb, zoff);
+        if (edge) {
+          const uint32_t keep = (k0 + kk >= kend ? 0u : 0xFFFFu)
+                                | (k0 + kk + 1 >= kend ? 0u : 0xFFFF0000u);
+          b[0][h] &= keep;
+          b[1][h] &= keep;
         }
-        // rows g / g + 8 of the warp's 16: columns 2g / 2g + 1
-        af[mt][ks][0] = b[0][0];
-        af[mt][ks][1] = b[1][0];
-        af[mt][ks][2] = b[0][1];
-        af[mt][ks][3] = b[1][1];
       }
+      // rows g / g + 8 of the warp's 16: columns 2g / 2g + 1
+      af[ks][0] = b[0][0];
+      af[ks][1] = b[1][0];
+      af[ks][2] = b[0][1];
+      af[ks][3] = b[1][1];
     }
     wgmma_fence();
     const __nv_bfloat16* xt = xs + st * XST;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      // k chunks 2 ks and 2 ks + 1; LBO: the next k chunk, SBO: 8 more rows
-      const uint64_t desc = smem_desc(xt + 2 * ks * (WG_BM / 8) * CORE,
-                                      (WG_BM / 8) * CORE * 2, CORE * 2);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wgmma_m64n128k16(acc[mt], af[mt][ks], desc);
+      // the k16 step ks starts 32 bytes further into the swizzled rows
+      wgmma_m64n128k16(acc, af[ks], smem_desc_sw128(xt + ks * 16));
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous tile's group is done: prev is free
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) fence_operand(prev[mt][ks][e]);
+      for (int e = 0; e < 4; ++e) fence_operand(prev[ks][e]);
   };
   for (int kt = 0; kt < ntiles; kt += 2) {
     tile(kt, af0, af1);
@@ -863,37 +754,31 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+    for (int e = 0; e < 4; ++e) {
+      fence_operand(af0[ks][e]);
+      fence_operand(af1[ks][e]);
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        fence_operand(af0[mt][ks][e]);
-        fence_operand(af1[mt][ks][e]);
-      }
-#pragma unroll
-    for (int e = 0; e < 64; ++e) fence_operand(acc[mt][e]);
-  }
+  for (int e = 0; e < 64; ++e) fence_operand(acc[e]);
   cp_async_wait<0>();
 
   const bool split = gridDim.z > 1;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int i = 0; i < WG_BM / 8; ++i) {
 #pragma unroll
-    for (int i = 0; i < WG_BM / 8; ++i) {
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = m0 + 8 * i + 2 * t + e;          // a row of x, out
-          const int n = n0 + wcol + 64 * mt + g * 2 + h;   // D row g + 8 h
-          if (row >= M || n >= N) continue;
-          const float v = acc[mt][4 * i + 2 * h + e];
-          if (!split) {
-            out[(size_t)row * N + n] = __float2bfloat16_rn(scale[n] * v);
-          } else {
-            ws[((size_t)blockIdx.z * M + row) * N + n] = v;
-          }
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + 8 * i + 2 * t + e;  // a row of x and out
+        const int n = n0 + wcol + g * 2 + h;     // D row g + 8 h
+        if (row >= M || n >= N) continue;
+        const float v = acc[4 * i + 2 * h + e];
+        if (!split) {
+          out[(size_t)row * N + n] = __float2bfloat16_rn(scale[n] * v);
+        } else {
+          ws[((size_t)blockIdx.z * M + row) * N + n] = v;
         }
       }
     }
@@ -918,60 +803,46 @@ void run_fp32(const Args& a, dim3 grid, int smem, cudaStream_t s) {
       static_cast<float*>(a.out), a.ws, a.M, a.K, a.N, a.rows_per_split);
 }
 
-template <class C, bool PACKED, bool VEC_X, bool VEC_C>
-void run_tc(const Args& a, dim3 grid, cudaStream_t s) {
-  tc_kernel<C, PACKED, VEC_X, VEC_C><<<grid, THREADS, C::smem(PACKED), s>>>(
+template <bool PACKED, bool VEC_X, bool VEC_C>
+void run_dec(const Args& a, dim3 grid, cudaStream_t s) {
+  dec_kernel<PACKED, VEC_X, VEC_C><<<grid, THREADS, dec_smem(PACKED), s>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.codes, a.scale, a.zero,
       static_cast<__nv_bfloat16*>(a.out), a.ws, a.counters, a.M, a.K, a.N,
       a.rows_per_split);
 }
 
-template <class C, bool PACKED>
-void tc_packed(bool vec_x, bool vec_c, const Args& a, dim3 grid,
-               cudaStream_t s) {
-  if (vec_x) {
-    vec_c ? run_tc<C, PACKED, true, true>(a, grid, s)
-          : run_tc<C, PACKED, true, false>(a, grid, s);
-  } else {
-    vec_c ? run_tc<C, PACKED, false, true>(a, grid, s)
-          : run_tc<C, PACKED, false, false>(a, grid, s);
+template <bool PACKED, bool VEC_X, bool VEC_C>
+void run_wg(const Args& a, dim3 grid, cudaStream_t s) {
+  wg_kernel<PACKED, VEC_X, VEC_C><<<grid, THREADS, wg_smem(PACKED), s>>>(
+      static_cast<const __nv_bfloat16*>(a.x), a.codes, a.scale, a.zero,
+      static_cast<__nv_bfloat16*>(a.out), a.ws, a.M, a.K, a.N,
+      a.rows_per_split);
+}
+
+// Launch one of a kernel's instantiations, chosen by the alignment flags.
+#define DISPATCH(RUN, PACKED)                                       \
+  if (vec_x) {                                                      \
+    vec_c ? RUN<PACKED, true, true>(a, grid, s)                     \
+          : RUN<PACKED, true, false>(a, grid, s);                   \
+  } else {                                                          \
+    vec_c ? RUN<PACKED, false, true>(a, grid, s)                    \
+          : RUN<PACKED, false, false>(a, grid, s);                  \
   }
+
+template <bool PACKED>
+void dec(bool vec_x, bool vec_c, const Args& a, dim3 grid, cudaStream_t s) {
+  DISPATCH(run_dec, PACKED)
 }
 
-template <class C>
-void tc(bool packed, bool vec_x, bool vec_c, const Args& a, dim3 grid,
-        cudaStream_t s) {
-  packed ? tc_packed<C, true>(vec_x, vec_c, a, grid, s)
-         : tc_packed<C, false>(vec_x, vec_c, a, grid, s);
+template <bool PACKED>
+void wg(bool vec_x, bool vec_c, const Args& a, dim3 grid, cudaStream_t s) {
+  DISPATCH(run_wg, PACKED)
 }
 
-// Let every instantiation of C use its dynamic shared memory (above 48 KB
-// only by this opt-in); run once at load, outside any graph capture.
-template <class C, bool PACKED>
-cudaError_t allow_smem_packed() {
-  const int bytes = C::smem(PACKED);
-  cudaError_t e = cudaSuccess;
-  auto set = [&](const void* fn) {
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    }
-  };
-  set(reinterpret_cast<const void*>(&tc_kernel<C, PACKED, true, true>));
-  set(reinterpret_cast<const void*>(&tc_kernel<C, PACKED, true, false>));
-  set(reinterpret_cast<const void*>(&tc_kernel<C, PACKED, false, true>));
-  set(reinterpret_cast<const void*>(&tc_kernel<C, PACKED, false, false>));
-  return e;
-}
-
-template <int MT, bool PACKED>
-cudaError_t allow_wg_smem() {
-  const int bytes = wg_smem(MT, PACKED);
-  const void* fns[] = {
-      reinterpret_cast<const void*>(&wg_kernel<MT, PACKED, true, true>),
-      reinterpret_cast<const void*>(&wg_kernel<MT, PACKED, true, false>),
-      reinterpret_cast<const void*>(&wg_kernel<MT, PACKED, false, true>),
-      reinterpret_cast<const void*>(&wg_kernel<MT, PACKED, false, false>)};
+// Lets the four instantiations of a kernel use `bytes` of dynamic shared
+// memory (above 48 KB only by this opt-in); run once at load, outside any
+// graph capture.
+cudaError_t allow_smem(const void* const (&fns)[4], int bytes) {
   for (const void* fn : fns) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -980,66 +851,39 @@ cudaError_t allow_wg_smem() {
   return cudaSuccess;
 }
 
-template <int MT, bool PACKED, bool VEC_X, bool VEC_C>
-void run_wg(const Args& a, dim3 grid, cudaStream_t s) {
-  wg_kernel<MT, PACKED, VEC_X, VEC_C><<<grid, THREADS, wg_smem(MT, PACKED), s>>>(
-      static_cast<const __nv_bfloat16*>(a.x), a.codes, a.scale, a.zero,
-      static_cast<__nv_bfloat16*>(a.out), a.ws, a.M, a.K, a.N,
-      a.rows_per_split);
+template <bool PACKED>
+cudaError_t allow_smem_all() {
+  const void* const dec_fns[4] = {
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, true>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, false>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, true>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, false>)};
+  const void* const wg_fns[4] = {
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, true>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, false>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, true>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, false>)};
+  const cudaError_t e = allow_smem(dec_fns, dec_smem(PACKED));
+  return e != cudaSuccess ? e : allow_smem(wg_fns, wg_smem(PACKED));
 }
-
-template <int MT, bool PACKED>
-void wg_packed(bool vec_x, bool vec_c, const Args& a, dim3 grid,
-               cudaStream_t s) {
-  if (vec_x) {
-    vec_c ? run_wg<MT, PACKED, true, true>(a, grid, s)
-          : run_wg<MT, PACKED, true, false>(a, grid, s);
-  } else {
-    vec_c ? run_wg<MT, PACKED, false, true>(a, grid, s)
-          : run_wg<MT, PACKED, false, false>(a, grid, s);
-  }
-}
-
-template <int MT>
-void wg(bool packed, bool vec_x, bool vec_c, const Args& a, dim3 grid,
-        cudaStream_t s) {
-  packed ? wg_packed<MT, true>(vec_x, vec_c, a, grid, s)
-         : wg_packed<MT, false>(vec_x, vec_c, a, grid, s);
-}
-
-template <class C>
-cudaError_t allow_smem() {
-  const cudaError_t e = allow_smem_packed<C, true>();
-  return e != cudaSuccess ? e : allow_smem_packed<C, false>();
-}
-
-//                   BM   BN  WM BK_P BK_U ST MINB FIXUP
-using Decode   = Cfg<  8, 128, 1, 128,  64, 4, 4, true>;
-using MmaSmall = Cfg< 64, 128, 2,  64,  64, 4, 3, false>;
 
 }  // namespace
 
 // Sets the tensor-core kernels' dynamic shared memory limits; call once
 // after loading the library. Returns the first CUDA error, or 0.
 extern "C" int dequant_matmul_2d_init() {
-  cudaError_t e = allow_smem<Decode>();
-  if (e == cudaSuccess) e = allow_smem<MmaSmall>();
-  if (e == cudaSuccess) e = allow_wg_smem<1, true>();
-  if (e == cudaSuccess) e = allow_wg_smem<1, false>();
-  if (e == cudaSuccess) e = allow_wg_smem<2, true>();
-  if (e == cudaSuccess) e = allow_wg_smem<2, false>();
-  return static_cast<int>(e);
+  const cudaError_t e = allow_smem_all<true>();
+  return static_cast<int>(e != cudaSuccess ? e : allow_smem_all<false>());
 }
 
 // Plain C interface (bound with ctypes); every launch parameter comes from
 // the wrapper's planning function. kernel (x and out bfloat16 but for 0):
-// 0 fp32_kernel (float32), 1 tc_kernel<Decode>, 2 tc_kernel<MmaSmall>,
-// 3 wg_kernel<1> (128 weight columns per block), 4 wg_kernel<2> (256).
+// 0 fp32_kernel (float32), 1 dec_kernel, 2 wg_kernel.
 // codes uint8 (K/2, N) when packed, else (K, N); scale and zero float32
 // (1, N); all contiguous. Grid (gx, gy, splits); rows_per_split counts
 // code rows for fp32_kernel and K rows (a multiple of 8) for the tensor-
 // core kernels. With splits > 1, `ws` holds splits x M x N float32
-// partial sums: Decode adds them in its last block per output tile,
+// partial sums: dec_kernel adds them in its last block per output tile,
 // counted in `counters` (gx * gy ints, zero before the launch and after
 // it); the other kernels in a second pass. Runs on `stream`, allocates
 // nothing, and returns cudaGetLastError() after each launch.
@@ -1067,10 +911,15 @@ extern "C" int dequant_matmul_2d(const void* x, const void* codes,
                   : run_fp32<false, false>(a, grid, smem_bytes, s);
       }
       break;
-    case 1: tc<Decode>(packed, vec_x, vec_codes, a, grid, s); second_pass = false; break;
-    case 2: tc<MmaSmall>(packed, vec_x, vec_codes, a, grid, s); break;
-    case 3: wg<1>(packed, vec_x, vec_codes, a, grid, s); break;
-    case 4: wg<2>(packed, vec_x, vec_codes, a, grid, s); break;
+    case 1:  // adds its splits itself
+      packed ? dec<true>(vec_x, vec_codes, a, grid, s)
+             : dec<false>(vec_x, vec_codes, a, grid, s);
+      second_pass = false;
+      break;
+    case 2:
+      packed ? wg<true>(vec_x, vec_codes, a, grid, s)
+             : wg<false>(vec_x, vec_codes, a, grid, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();

@@ -11,8 +11,7 @@ tensor never takes the plain version: the kernel launches or the wrapper
 raises. K1 and K2 run ``csrc/dequant_matmul_2d.cu`` in the regime that
 :func:`plan` picks from the shape: ``decode`` (bf16 x, M <= ``DECODE_MAX_M``:
 split-K, codes streamed through a cp.async ring onto the tensor cores),
-``mma`` (bf16 x, larger M: mma.sync tiles for prefill-sized M, wgmma
-above) or ``fp32`` (float32 x, any M: CUDA-core multiply-adds, kept out of
+``mma`` (bf16 x, larger M: wgmma tiles) or ``fp32`` (float32 x, any M: CUDA-core multiply-adds, kept out of
 TF32). K5 runs
 ``csrc/dequant_matmul.cu``. Each wrapper counts its launches in
 ``<wrapper>.launches`` and per form in ``<wrapper>.forms``: the regime for
@@ -47,13 +46,11 @@ _BM = 32  # rows per block of the K5 kernel in csrc/dequant_matmul.cu
 SMS = 132                # streaming multiprocessors of an H100 SXM
 DECODE_MAX_M = 8         # bf16 x with M above this takes the mma regime
 # the C entry's `kernel` and its block tile (rows of x, weight columns):
-# 1 tc_kernel<Decode>, 2 tc_kernel<MmaSmall>, 3 wg_kernel<1>, 4
-# wg_kernel<2>; 0 is fp32_kernel (FP_BM x FP_BN)
-TILES = {1: (8, 128), 2: (64, 128), 3: (128, 128), 4: (128, 256)}
-K_GRAIN = 8              # tc_kernel splits K in multiples of 8 rows
+# 1 dec_kernel, 2 wg_kernel; 0 is fp32_kernel (FP_BM x FP_BN)
+TILES = {1: (8, 128), 2: (128, 128)}
+K_GRAIN = 8              # decode and mma split K in multiples of 8 rows
 MMA_MIN_ROWS = 256       # mma splits: their partial sums are M x N each
 MMA_SPLIT_BELOW = SMS // 2  # mma grids of fewer tiles split K
-MMA_SYNC_MAX_M = 64      # mma: mma.sync tiles up to here, wgmma above
 DECODE_BLOCKS = 2 * SMS  # decode grids split K up to this many blocks
 MAX_SPLIT_TILES = 1024   # output tiles of a split decode launch, at most
 FP_BM, FP_BN = 4, 128    # fp32_kernel block: rows of x x columns
@@ -66,7 +63,7 @@ FP_RED_BYTES = 8 * FP_BM * FP_BN * 4  # cross-warp reduction buffer
 @dataclass(frozen=True)
 class Plan:
     """How one K1/K2 call launches. ``rows_per_split`` counts K rows
-    (tc_kernel: decode, mma) or code rows (fp32_kernel);
+    (decode, mma) or code rows (fp32_kernel);
     ``workspace_bytes`` is 0 with one split."""
     regime: str                  # "decode", "mma" or "fp32"
     kernel: int                  # the C entry's `kernel`
@@ -75,7 +72,7 @@ class Plan:
     workspace_bytes: int
     smem_bytes: int              # dynamic shared memory (fp32_kernel)
     vec_codes: bool              # 16-byte code loads
-    vec_x: bool                  # 16-byte x copies (tc_kernel)
+    vec_x: bool                  # 16-byte x copies (decode, mma)
 
     @property
     def splits(self) -> int:
@@ -87,7 +84,7 @@ class Plan:
 
 
 def _tc_split(K: int, base: int, target: int, min_rows: int) -> int:
-    """K rows per split of a tc_kernel grid of ``base`` tiles: enough
+    """K rows per split of a tensor-core grid of ``base`` tiles: enough
     splits to reach ``target`` blocks, each of at least ``min_rows`` rows,
     in multiples of K_GRAIN rows."""
     splits = max(1, min(math.ceil(target / base), K // min_rows))
@@ -110,9 +107,8 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, packed: bool,
          x_ptr: int = 0, codes_ptr: int = 0) -> Plan:
     """The launch of a K1 (``packed``) or K2 call on x (M, K) of ``dtype``
     and codes (K/2 or K, N) at the given device addresses. bf16 x: the
-    decode regime (tc_kernel's Decode tile) up to DECODE_MAX_M rows, then
-    the mma regime (tc_kernel's MmaSmall tile up to MMA_SYNC_MAX_M rows,
-    wg_kernel above); float32 x runs fp32_kernel. Pure: no device is
+    decode regime (dec_kernel) up to DECODE_MAX_M rows, the mma regime
+    (wg_kernel) above; float32 x runs fp32_kernel. Pure: no device is
     touched."""
     if M < 1 or K < 1 or N < 1 or (packed and K % 2):
         raise ValueError(f"dequant_matmul: no plan for M={M} K={K} N={N} "
@@ -126,16 +122,9 @@ def plan(M: int, K: int, N: int, dtype: torch.dtype, packed: bool,
         rps = _tc_split(K, gx * gy, DECODE_BLOCKS, K_GRAIN)
         splits, smem = math.ceil(K / rps), 0
     elif dtype == torch.bfloat16:
-        # mma.sync 64 x 128 tiles for prefill-sized M; wgmma above, with
-        # 256 weight columns per block (each x tile then serves twice the
-        # columns) where that grid still keeps half the SMs busy; K split
-        # where the grid leaves most SMs idle
+        # K split where the grid leaves most SMs idle
         regime, kernel = "mma", 2
-        if M > MMA_SYNC_MAX_M:
-            wide = math.ceil(N / TILES[4][1]) * math.ceil(M / TILES[4][0])
-            kernel = 4 if wide >= MMA_SPLIT_BELOW else 3
-        gx = math.ceil(N / TILES[kernel][1])
-        gy = math.ceil(M / TILES[kernel][0])
+        gx, gy = math.ceil(N / TILES[2][1]), math.ceil(M / TILES[2][0])
         rps = _tc_split(K, gx * gy, MMA_SPLIT_BELOW, MMA_MIN_ROWS)
         splits, smem = math.ceil(K / rps), 0
     else:

@@ -80,26 +80,27 @@ def test_plan_flags_misaligned(M, K, N, packed, x_ptr, codes_ptr, vec_x,
 
 
 @pytest.mark.parametrize("M", [1, k12.DECODE_MAX_M - 1, k12.DECODE_MAX_M,
-                               k12.DECODE_MAX_M + 1, 16,
-                               k12.MMA_SYNC_MAX_M, k12.MMA_SYNC_MAX_M + 1])
+                               k12.DECODE_MAX_M + 1, 16, 64, 65])
 def test_plan_threshold(M):
-    """decode up to DECODE_MAX_M rows; mma.sync tiles (kernel 2) up to
-    MMA_SYNC_MAX_M; wgmma (kernels 3 and 4) above."""
+    """The decode kernel (1) up to DECODE_MAX_M rows, wgmma (2) above."""
     p = k12.plan(M, 576, 1536, torch.bfloat16, True)
     assert p.regime == ("decode" if M <= k12.DECODE_MAX_M else "mma")
-    want = (1 if M <= k12.DECODE_MAX_M else 2 if M <= k12.MMA_SYNC_MAX_M
-            else 3)
-    assert p.kernel == want
+    assert p.kernel == (1 if M <= k12.DECODE_MAX_M else 2)
 
 
-@pytest.mark.parametrize("M,K,N,kernel", [
-    (512, 5120, 8192, 4), (512, 8192, 5120, 4), (512, 5120, 5120, 4),
-    (512, 5120, 1024, 3), (512, 576, 1536, 3), (512, 1536, 576, 3),
-])
-def test_plan_wgmma_width(M, K, N, kernel):
-    """256 weight columns per wgmma block where that grid still keeps half
-    the SMs busy, else 128."""
-    assert k12.plan(M, K, N, torch.bfloat16, True).kernel == kernel
+@pytest.mark.parametrize("M,K,N", [(512, 5120, 8192), (512, 8192, 5120),
+                                   (65, 5120, 1024), (512, 576, 192)])
+def test_plan_wgmma_tiles(M, K, N):
+    """The mma regime: wg_kernel, 128 rows of x by 128 weight columns per
+    block, K split only where fewer than MMA_SPLIT_BELOW blocks would run,
+    each split at least MMA_MIN_ROWS deep."""
+    p = k12.plan(M, K, N, torch.bfloat16, True)
+    assert p.kernel == 2 and k12.TILES[2] == (128, 128)
+    assert p.grid[:2] == (math.ceil(N / 128), math.ceil(M / 128))
+    if p.grid[0] * p.grid[1] >= k12.MMA_SPLIT_BELOW:
+        assert p.splits == 1
+    else:
+        assert p.splits > 1 and p.rows_per_split >= k12.MMA_MIN_ROWS
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 576, 1536), (512, 8192, 5120),
@@ -152,7 +153,7 @@ def _bf16_bits(v):
 def test_nibble_pair_bits(jj):
     """The packed B fragment: byte jj of a code word holds rows 2i (low
     nibble) and 2i+1 (high); one byte permute and one mask-and-or give the
-    bf16x2 {128 + lo, 128 + hi} that tc_kernel subtracts {128 + z} from."""
+    bf16x2 {128 + lo, 128 + hi} that the kernels subtract {128 + z} from."""
     rng = np.random.default_rng(jj)
     for b in range(256):
         others = [int(v) for v in rng.integers(0, 256, 3)]
