@@ -27,7 +27,15 @@ last line is not printed):
               K5 (dequant_matmul_batched) at the expert shapes, E = 16,
               M in {4, 40}, (K, N) in {(5120, 8192), (8192, 5120)}, packed
               and unpacked codes, x in bfloat16 and float32, plus a ragged
-              E = 3, M = 7, N = 200, K = 578 / 577.
+              E = 3, M = 7, N = 200, K = 578 / 577; then x as a decode step
+              routes it (4 tokens to 4 distinct experts, to 2 and to 1, the
+              other experts' rows zero), an expert zero over part of K
+              only, all-zero x, and x and codes off 16-byte alignment in
+              both regimes; each row names its regime, and every expert
+              whose rows are all zero must come out +0. Routed rows are
+              timed against the bound over the active experts' bytes and
+              against torch.bmm over the full stack and over the active
+              experts only.
               K4 (flexround_quant), bit-exact, at the 2-D site shapes of
               both models and a ragged (7, 200), w in float32 and bfloat16,
               per tensor and per channel, with states from flexround.init
@@ -50,8 +58,10 @@ last line is not printed):
               version); then export-only PTQ (W4 body, W8 layers 0 and 3,
               A8, per-channel, mse observer) on 8 x 64 calibration tokens
               and the same serving run as phase 4. K5 must launch packed
-              and unpacked in the export and in serving, and K1, K2 and K3
-              must launch, K1 and K2 in both regimes. One MoE FFN of a W8 and of a W4 layer is fed the
+              and unpacked in the export and in serving, in the mma regime
+              in the export and the decode regime in serving, and K1, K2
+              and K3 must launch, K1 and K2 in both regimes. One MoE FFN
+              of a W8 and of a W4 layer is fed the
               same hidden input with backend "auto" and "torch": identical
               routing, outputs within bfloat16 tolerance. Request 0 is
               re-run with the plain versions; the relative L2 of its logits
@@ -109,7 +119,7 @@ SOURCES = {
                      "src/repro/kernels/qmatmul_int8.py:58"),
     "flexround_quant": ("src/repro_torch/csrc/flexround_quant.cu",
                         "src/repro/kernels/flexround_quant.py:32"),
-    "dequant_matmul_batched": ("src/repro_torch/csrc/dequant_matmul.cu",
+    "dequant_matmul_batched": ("src/repro_torch/csrc/dequant_matmul_2d.cu",
                                "src/repro/kernels/dequant_matmul_w4.py:157"),
 }
 
@@ -319,21 +329,66 @@ def _matmul_tol(torch, x, w, want, K):
     return 1e-5 + 8 * math.sqrt(K) * 2.0**-24 * torch.matmul(x.abs(), w.abs())
 
 
-def check_batched(torch, kern, ref, E, M, K, N, packed, dtype, gen, timed):
-    """K5 against its plain version: x (E, M, K), codes (E, K/2 or K, N)."""
-    bits = 4 if packed else 8
+# K5's rows of x: "dense" (every row non-zero); as a decode step's dispatch
+# builds them from 4 tokens routed top-1 to 4, 2 or 1 experts ("routed4",
+# "routed2", "routed1"), the other experts' rows zero; "partial" (expert 1
+# zero over the first half of K only, expert 2 all zero, the rest dense);
+# "zero" (every row zero, half of the experts -0)
+K5_ROUTED = {"routed4": (1, 6, 9, 14), "routed2": (3, 3, 12, 12),
+             "routed1": (5, 5, 5, 5)}
+
+
+def _k5_x(torch, E, M, K, dtype, pattern, gen):
+    if pattern in K5_ROUTED:
+        # the dispatch einsum of models/moe.py: token t to slot c of expert e
+        experts = K5_ROUTED[pattern]
+        tokens = torch.randn((len(experts), K), generator=gen,
+                             device=DEV).to(dtype)
+        dispatch = torch.zeros((len(experts), E, M), device=DEV, dtype=dtype)
+        filled = {}
+        for t, e in enumerate(experts):
+            dispatch[t, e, filled.get(e, 0)] = 1
+            filled[e] = filled.get(e, 0) + 1
+        return torch.einsum("tec,tk->eck", dispatch, tokens).contiguous()
     x = torch.randn((E, M, K), generator=gen, device=DEV).to(dtype)
+    if pattern == "partial":
+        x[1, :, :K // 2] = 0
+        x[2] = 0
+    elif pattern == "zero":
+        x.zero_()
+        x[::2] = -0.0
+    return x
+
+
+def check_batched(torch, kern, ref, E, M, K, N, packed, dtype, gen, timed,
+                  pattern="dense", misalign=False):
+    """K5 against its plain version: x (E, M, K) as ``pattern`` lays out its
+    rows, codes (E, K/2 or K, N); the row names the regime the call took,
+    which must match ``plan``, and experts whose rows of x are all zero must
+    give exactly +0. ``misalign`` moves x and codes off 16 bytes."""
+    bits = 4 if packed else 8
+    x = _k5_x(torch, E, M, K, dtype, pattern, gen)
     codes = torch.randint(0, 256 if packed else 2**bits,
                           (E, K // 2 if packed else K, N), generator=gen,
                           device=DEV, dtype=torch.uint8)
+    if misalign:
+        x, codes = _misaligned(torch, x), _misaligned(torch, codes)
     scale = (torch.exp(torch.randn((E, 1, N), generator=gen, device=DEV) * 0.2)
              * 0.2 / (2**bits - 1))
     zero = torch.round(torch.rand((E, 1, N), generator=gen, device=DEV)
                        * (2**bits - 1))
-    got = kern.dequant_matmul_batched(x, codes, scale, zero, packed)
+    fn = kern.dequant_matmul_batched
+    p = kern.plan(M, K, N, dtype, packed, x.data_ptr(), codes.data_ptr(), E=E)
+    forms = dict(fn.forms)
+    got = fn(x, codes, scale, zero, packed)
+    took = sorted(f for f in forms if fn.forms[f] != forms[f])
     want = ref.dequant_matmul_batched_ref(x, codes, scale, zero, packed)
     torch.cuda.synchronize()
-    tag = f"dequant_matmul_batched E={E} {M}x{K}x{N} packed={packed} {dtype}"
+    tag = (f"dequant_matmul_batched E={E} {M}x{K}x{N} packed={packed} {dtype} "
+           f"x={pattern}{' misaligned' if misalign else ''}")
+    if took != sorted([p.regime, "packed" if packed else "unpacked"]) or (
+            misalign and (p.vec_codes or p.vec_x)):
+        fail(f"{tag}: launched {took}, planned {p}")
     if got.dtype != dtype or got.shape != (E, M, N) or not torch.isfinite(got).all():
         fail(f"{tag}: bad output {got.dtype} {tuple(got.shape)}")
     err = (got.float() - want.float()).abs()
@@ -344,26 +399,42 @@ def check_batched(torch, kern, ref, E, M, K, N, packed, dtype, gen, timed):
     if not bool((err <= tol).all()):
         fail(f"{tag}: max |err| {err.max().item():.3e} beyond the stated "
              "tolerance")
+    active = (x != 0).flatten(1).any(1)  # experts holding a non-zero row
+    empty = got[~active].float()
+    if bool((empty != 0).any()) or bool(torch.signbit(empty).any()):
+        fail(f"{tag}: an expert with all-zero x did not give +0")
+    n_active = int(active.sum())
     row = {"kernel": "dequant_matmul_batched", "E": E, "M": M, "K": K,
            "N": N, "packed": packed, "x": str(dtype).replace("torch.", ""),
+           "x_rows": pattern, "active_experts": n_active, "regime": p.regime,
+           "tile": p.kernel, "splits": p.splits, "misaligned": misalign,
            "max_abs_err": err.max().item()}
     if timed:
         wbytes = codes.numel() + 8 * E * N
         ybytes = E * K * N * x.element_size()  # the dequantized yardstick
         sets = [(x, codes.clone(), scale, zero, packed)
                 for _ in range(_copies(wbytes, ybytes))]
-        row["ms"] = cuda_ms(torch, kern.dequant_matmul_batched, sets)
-        row["eager_ms"] = eager_ms(torch, kern.dequant_matmul_batched, sets)
+        row["ms"] = cuda_ms(torch, fn, sets)
+        row["eager_ms"] = eager_ms(torch, fn, sets)
         row["plain_ms"] = cuda_ms(torch, ref.dequant_matmul_batched_ref, sets)
         # yardstick: one batched cuBLAS product (torch.bmm) on the stack
-        # dequantized beforehand
+        # dequantized beforehand; for routed x also on the active experts
+        # alone, so that the skip is not flattered by the full stack
         wdeq = [(x, (scale * ((ref.unpack_f32(c, axis=1) if packed
                                 else c.float()) - zero)).to(dtype))
                 for _, c, _, _, _ in sets]
         row["library_ms"] = cuda_ms(torch, torch.bmm, wdeq)
-        nbytes = (x.numel() * x.element_size() + wbytes
-                  + E * M * N * x.element_size())
-        row["bound_ms"], row["bound_by"] = bound(E * M, K, N, row["x"],
+        xbytes = x.numel() * x.element_size()
+        obytes = E * M * N * x.element_size()
+        if n_active < E:
+            idx = active.nonzero()[:, 0]
+            row["library_active_ms"] = cuda_ms(
+                torch, torch.bmm, [(xx[idx].contiguous(), ww[idx].contiguous())
+                                   for xx, ww in wdeq])
+        # each input read once, the output written once; codes, scale and
+        # zero of the experts this run's x needs
+        nbytes = xbytes + wbytes * n_active // E + obytes
+        row["bound_ms"], row["bound_by"] = bound(n_active * M, K, N, row["x"],
                                                  nbytes)
         del wdeq, sets
     return row
@@ -433,13 +504,17 @@ def _log_rows(rows):
         else:
             shape = (f"{'E=%d ' % r['E'] if 'E' in r else ''}M={r['M']:4d} "
                      f"K={r['K']:5d} N={r['N']:5d} x={r['x']:8s}"
-                     + (f" packed={r['packed']}" if "packed" in r else "")
+                     + (f" packed={r['packed']} rows={r['x_rows']}"
+                        f"({r['active_experts']})" if "packed" in r else "")
                      + (f" {r['regime']:6s} tile={r['tile']} "
                         f"splits={r['splits']:2d}" if "regime" in r else ""))
+        active = (f" library_active_ms={r['library_active_ms']}"
+                  if "library_active_ms" in r else "")
         log(f"  {r['kernel']:22s} {shape} ms={r['ms']:.5f} "
             f"eager_ms={r['eager_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-            f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+            f"library_ms={r['library_ms']}{active} bound_ms="
+            f"{r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3e}")
 
 
 def kernels_phase(torch):
@@ -501,6 +576,34 @@ def kernels_phase(torch):
                                   dtype, gen, False))
         rows.append(check_batched(torch, k12, ref, 3, 7, 577, 200, False,
                                   dtype, gen, False))
+    # K5's skip: x as a decode step routes it, timed at both expert shapes;
+    # an expert zero over part of K only and all-zero x in every regime
+    # (the ragged decode call splits K, so blocks skip some splits of a
+    # tile and compute others); x and codes off 16 bytes in both regimes
+    for K, N in LLAMA4_EXPERTS:
+        for packed in (True, False):
+            for pattern in ("routed4", "routed2", "routed1"):
+                rows.append(check_batched(
+                    torch, k12, ref, LLAMA4_E, 4, K, N, packed,
+                    torch.bfloat16, gen, pattern == "routed4" or (
+                        packed and (K, N) == LLAMA4_EXPERTS[0]), pattern))
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (4, 40):
+            for pattern in ("partial", "zero"):
+                rows.append(check_batched(torch, k12, ref, LLAMA4_E, M, 5120,
+                                          8192, True, dtype, gen, False,
+                                          pattern))
+        for M in (7, 40):
+            rows.append(check_batched(torch, k12, ref, 3, M, 578, 200, True,
+                                      dtype, gen, False, "partial"))
+            rows.append(check_batched(torch, k12, ref, 3, M, 577, 200, False,
+                                      dtype, gen, False, "partial"))
+            for packed in (True, False):
+                rows.append(check_batched(torch, k12, ref, 3, M, 576, 1536,
+                                          packed, dtype, gen, False,
+                                          "partial", misalign=True))
+        torch.cuda.empty_cache()
     # K4 at the 2-D site shapes of both models, and ragged
     k4_shapes = sorted(set(LLAMA4_2D) | {(576, 1536), (1536, 576)}) + [(7, 200)]
     for M, N in k4_shapes:
@@ -871,7 +974,11 @@ def moe_path_phase(torch, np):
     need = {"export: K5 packed": export_counts["dequant_matmul_batched[packed]"],
             "export: K5 unpacked":
                 export_counts["dequant_matmul_batched[unpacked]"],
-            "serve: K5": serve_counts["dequant_matmul_batched"],
+            "export: K5 mma": export_counts["dequant_matmul_batched[mma]"],
+            "serve: K5 packed": serve_counts["dequant_matmul_batched[packed]"],
+            "serve: K5 unpacked":
+                serve_counts["dequant_matmul_batched[unpacked]"],
+            "serve: K5 decode": serve_counts["dequant_matmul_batched[decode]"],
             "K1": counts["dequant_matmul_w4"], "K2": counts["dequant_matmul_w8"],
             "K3": counts["qmatmul_int8"]}
     if not all(need.values()):
@@ -917,7 +1024,8 @@ def _timed_row(rows, name):
             if (r["M"], r["N"], r["x"]) == t and r["granularity"] == "per_channel":
                 return r
         elif (r["M"], r["K"], r["N"], r["x"]) == t and r.get("packed", True) \
-                and r.get("E", LLAMA4_E) == LLAMA4_E:
+                and r.get("E", LLAMA4_E) == LLAMA4_E \
+                and r.get("x_rows", "dense") == "dense":
             return r
     fail(f"no timed row for {name} at {t}")
 

@@ -1,7 +1,7 @@
-// K1 / K2: weight-only dequant-matmul for Hopper (sm_90a): decode, mma and
-// fp32 regimes.
+// K1 / K2 / K5: weight-only dequant-matmul for Hopper (sm_90a): decode, mma
+// and fp32 regimes, on one 2-D operand or on a stack of experts.
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/dequant_matmul_w4.py:
+// Replaces the Pallas TPU kernels of src/repro/kernels/dequant_matmul_w4.py:
 // dequant_matmul (pl.pallas_call at :118, _kernel :37, _unpack_f32 :29),
 // reached through dequant_matmul_w4 (:135, 4-bit codes (K/2, N), K row 2i
 // in the low nibble and 2i+1 in the high nibble of byte row i, K1) and
@@ -9,7 +9,15 @@
 //
 //   out[M, N] = x[M, K] @ (scale[1, N] * (codes[K, N] - zero[1, N]))
 //
-// Both kernels compute the factored form
+// and dequant_matmul_batched (:157, pl.pallas_call at :186, _kernel_batched
+// :57, K5), the same product per expert over stacked MoE weights:
+//
+//   out[e] = x[e] @ (scale[e] * (codes[e] - zero[e]))
+//
+// with x (E, M, K), codes (E, K/2, N) packed along K or (E, K, N), scale
+// and zero (E, 1, N), out (E, M, N).
+//
+// All kernels compute the factored form
 //
 //   out[m, n] = scale[n] * sum_k x[m, k] * (q[k, n] - zero[n])
 //
@@ -49,16 +57,44 @@
 //   the codes with 16-byte loads, 4 rows of x per block from shared
 //   memory, float32 multiply-adds, over M tiles of 4 rows and K splits.
 //
+// K5 runs the same three kernels with the template flag BATCHED set; the
+// 2-D instantiations (BATCHED false) are the K1/K2 code unchanged, since an
+// expert offset computed at run time on the shared kernels made K1 1.7x
+// slower at decode. The expert rides on the grid's y axis, blockIdx.y =
+// expert * (row tiles per expert) + row tile, so that z stays the K split
+// and the decode kernel's per-tile split counters (indexed by y * gx + x)
+// and its in-kernel reduction cover every expert's tiles unchanged; the
+// split workspace is laid out (E, splits, M, N). At decode (4 capacity rows
+// per expert, every serving call) K5 is bound by the stack's code bytes:
+// 16 experts of 5120 x 8192 are 335.5 MB packed, 0.100 ms at 3.35 TB/s.
+// But a serving step routes 4 tokens top-1, so at least 12 of the 16
+// experts hold no token, and their rows of x, built by the dispatch einsum
+// from an all-zero one-hot, are exactly zero. So a BATCHED block first
+// reads its own rows of x over its own K range (16-byte loads, four per
+// thread per round, row-major so that the first round finds the token a
+// filled capacity slot 0 holds; x is at most 655 KB per decode launch and
+// sits in L2) and, where every value is +0 or -0, streams none of its
+// codes: it runs the kernel's epilogue on its zero accumulators, writing
+// scale * +0 = +0 to its output tile, or +0 as its partial sum with its
+// place in the split counter protocol, so the last block of a tile still
+// fires and still adds every split. This is exact: (q - zero) and scale
+// are finite, so the full computation's sum of +-0 * (q - zero) products
+// from +0 is +0 as well. The test is a prologue in the block rather than
+// a flag pass, so it costs no second launch and no buffer, needs no host
+// sync, and stays capturable in a CUDA graph; fp32_kernel takes the OR of
+// the x chunk it stages anyway.
+//
 // Split launches write float32 partial sums to a workspace and add them in
 // split order, never with float atomics, so results do not change from run
 // to run; grids that fill the card run one split.
 //
 // Alignment: 16-byte code loads need N % 16 == 0 and a 16-byte-aligned
-// codes pointer, 16-byte x copies K % 8 == 0 and an aligned x pointer; the
-// planning function decides from the shape and data_ptr() and otherwise
-// selects the instantiation with masked scalar loads. Ragged M, N and K are
-// masked at load and store; the last K tile of the tensor-core kernels is
-// zeroed on both x and (q - zero) past the split's end.
+// codes pointer, 16-byte x copies K % 8 == 0 and an aligned x pointer
+// (each expert's slice then is aligned too); the planning function decides
+// from the shape and data_ptr() and otherwise selects the instantiation
+// with masked scalar loads. Ragged M, N and K are masked at load and store;
+// the last K tile of the tensor-core kernels is zeroed on both x and
+// (q - zero) past the split's end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +109,22 @@ __device__ __forceinline__ float magic(uint32_t q) {
   return __uint_as_float(0x4B000000u | q);
 }
 
+// K5: the block's expert from blockIdx.y = expert * (row tiles) + row tile;
+// moves x, codes, scale, zero, out and (split launches) the workspace to
+// that expert's slices and returns the block's row tile within it.
+#define TO_EXPERT(BM, CODE_ROWS)                                        \
+  [&] {                                                                 \
+    const int gy_ = (M + (BM) - 1) / (BM);                              \
+    const size_t e_ = blockIdx.y / gy_;                                 \
+    x += e_ * M * K;                                                    \
+    codes += e_ * (CODE_ROWS) * N;                                      \
+    scale += e_ * N;                                                    \
+    zero += e_ * N;                                                     \
+    out += e_ * M * N;                                                  \
+    if (gridDim.z > 1) ws += e_ * gridDim.z * M * N;                    \
+    return (int)(blockIdx.y - e_ * gy_);                                \
+  }()
+
 // -------------------------------------------------------------------- fp32
 constexpr int FP_BM = 4;        // rows of x per block
 constexpr int FP_COLS = 16;     // columns per thread: one 16-byte code load
@@ -84,8 +136,10 @@ constexpr int FP_ROW_STEP = FP_LANES * FP_UNROLL;  // 128 code rows
 
 // Dynamic shared memory: the block's K chunk of x as float4 (4 rows per k),
 // padded with zeros to a multiple of FP_ROW_STEP code rows, then reused
-// for the cross-warp reduction (8 warps x 4 rows x 128 columns).
-template <bool PACKED, bool VEC>
+// for the cross-warp reduction (8 warps x 4 rows x 128 columns). BATCHED:
+// one expert of a K5 stack per row of blocks; a block whose staged x chunk
+// is all +0 skips its codes.
+template <bool PACKED, bool VEC, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
             const float* __restrict__ scale, const float* __restrict__ zero,
@@ -99,7 +153,8 @@ fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
   const int kl = tid / FP_CT;
   const int nb = blockIdx.x * FP_BN;
   const int n0 = nb + ct * FP_COLS;
-  const int m0 = blockIdx.y * FP_BM;
+  int m0 = blockIdx.y * FP_BM;
+  if constexpr (BATCHED) m0 = TO_EXPERT(FP_BM, R) * FP_BM;
   const int rbeg = blockIdx.z * rows_per_split;
   const int nrows = min(rows_per_split, R - rbeg);
   const int padded = (nrows + FP_ROW_STEP - 1) / FP_ROW_STEP * FP_ROW_STEP;
@@ -107,12 +162,15 @@ fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
   const int kend = kbeg + nrows * KPER;
   const int nk = padded * KPER;
 
+  uint32_t bits = 0;  // BATCHED: the OR of the staged x, signs dropped
   for (int i = tid; i < FP_BM * nk; i += THREADS) {
     const int m = i / nk;
     const int kk = i - m * nk;
     const int k = kbeg + kk;
-    smem[kk * FP_BM + m] = (m0 + m < M && k < kend)
-        ? x[(size_t)(m0 + m) * K + k] : 0.0f;
+    const float v = (m0 + m < M && k < kend) ? x[(size_t)(m0 + m) * K + k]
+                                             : 0.0f;
+    smem[kk * FP_BM + m] = v;
+    if constexpr (BATCHED) bits |= __float_as_uint(v) & 0x7FFFFFFFu;
   }
   float zoff[FP_COLS];
 #pragma unroll
@@ -127,9 +185,14 @@ fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
   }
   const float4* xs = reinterpret_cast<const float4*>(smem);
   const uint8_t* cbase = codes + (size_t)rbeg * N + n0;
-  __syncthreads();
+  int lend = padded;  // code rows this block walks
+  if constexpr (BATCHED) {
+    if (!__syncthreads_or(bits != 0u)) lend = 0;  // x all +-0: codes unread
+  } else {
+    __syncthreads();
+  }
 
-  for (int lr = kl; lr < padded; lr += FP_ROW_STEP) {
+  for (int lr = kl; lr < lend; lr += FP_ROW_STEP) {
     uint32_t w[FP_UNROLL][4];
 #pragma unroll
     for (int u = 0; u < FP_UNROLL; ++u) {
@@ -220,7 +283,8 @@ fp32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
 }
 
 // Second pass of a split fp32_kernel launch: out = scale * (sum of the
-// splits' partial sums, in split order).
+// splits' partial sums, in split order). BATCHED: expert blockIdx.y.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 reduce_splits_kernel(const float* __restrict__ ws,
                      const float* __restrict__ scale, float* __restrict__ out,
@@ -228,6 +292,11 @@ reduce_splits_kernel(const float* __restrict__ ws,
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
   const size_t mn = (size_t)M * N;
   if (i >= mn) return;
+  if constexpr (BATCHED) {
+    ws += (size_t)blockIdx.y * splits * mn;
+    scale += (size_t)blockIdx.y * N;
+    out += (size_t)blockIdx.y * mn;
+  }
   float s = 0.0f;
   for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
   out[i] = scale[i % N] * s;
@@ -317,6 +386,44 @@ __device__ __forceinline__ void build_b(uint32_t (&b)[NJ][2], int h,
   }
 }
 
+// K5's skip test: whether rows [m0, min(M, m0 + BM)) of x (row length K)
+// hold any value other than +0 or -0 over columns [kbeg, kend) (a signed
+// zero adds a +-0 product to the +0 accumulator, which stays +0). Rounds of
+// SKIP_LOADS loads per thread, row-major, the block stopping at the first
+// round that finds one; every thread returns the same answer.
+constexpr int SKIP_LOADS = 4;
+template <int BM, bool VEC_X>
+__device__ __forceinline__ bool rows_nonzero(
+    const __nv_bfloat16* __restrict__ x, int M, int K, int m0, int kbeg,
+    int kend) {
+  const int rows = min(BM, M - m0);
+  const int len = kend - kbeg;
+  // VEC_X: K, kbeg and kend are multiples of 8 and x is 16-byte aligned
+  const int per_row = VEC_X ? len / 8 : len;
+  const int total = rows * per_row;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  for (int base = 0; base < total; base += THREADS * SKIP_LOADS) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int u = 0; u < SKIP_LOADS; ++u) {
+      const int i = base + u * THREADS + threadIdx.x;
+      if (i < total) {
+        const int r = i / per_row;
+        const int c = i - r * per_row;
+        const size_t off = (size_t)(m0 + r) * K + kbeg;
+        if (VEC_X) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(x + off) + c);
+          bits |= v.x | v.y | v.z | v.w;
+        } else {
+          bits |= __ldg(xb + off + c);
+        }
+      }
+    }
+    if (__syncthreads_or((bits & 0x7FFF7FFFu) != 0u)) return true;
+  }
+  return false;
+}
+
 // The decode tile: 8 rows of x by 128 weight columns, K steps of 128 rows
 // (packed) or 64, a 4-stage cp.async ring, 8 warps of 16 columns each.
 constexpr int DEC_BM = 8;
@@ -347,8 +454,11 @@ extern __shared__ __align__(16) uint8_t tc_smem[];
 // along z take k_per_split K rows each (a multiple of 8); the last block of
 // an output tile to finish adds the tile's float32 partial sums in split
 // order and resets its counter, so a split launch needs no second pass and
-// its result does not depend on the order the blocks ran in.
-template <bool PACKED, bool VEC_X, bool VEC_C>
+// its result does not depend on the order the blocks ran in. BATCHED (K5):
+// one expert per row of blocks along y; a block whose rows of x are all +0
+// over its K range runs no K tile and goes straight to the epilogue with
+// zero accumulators, taking its part in the split protocol.
+template <bool PACKED, bool VEC_X, bool VEC_C, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 4)
 dec_kernel(const __nv_bfloat16* __restrict__ x,
            const uint8_t* __restrict__ codes, const float* __restrict__ scale,
@@ -371,12 +481,16 @@ dec_kernel(const __nv_bfloat16* __restrict__ x,
   const int wn0 = (tid / 32) * 16;               // warp's first column
   const int g = lane / 4;
   const int t = lane % 4;
-  const int m0 = blockIdx.y * DEC_BM;
+  int m0 = blockIdx.y * DEC_BM;
+  if constexpr (BATCHED) m0 = TO_EXPERT(DEC_BM, PACKED ? K / 2 : K) * DEC_BM;
   const int n0 = blockIdx.x * DEC_BN;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int rend = PACKED ? kend / 2 : kend;  // K and kend are even if PACKED
-  const int ntiles = (kend - kbeg + BK - 1) / BK;
+  int ntiles = (kend - kbeg + BK - 1) / BK;
+  if constexpr (BATCHED) {
+    if (!rows_nonzero<DEC_BM, VEC_X>(x, M, K, m0, kbeg, kend)) ntiles = 0;
+  }
 
   auto load_tile = [&](int stage, int kt) {
     const int k0 = kbeg + kt * BK;
@@ -530,6 +644,7 @@ dec_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // Second pass of a split wg_kernel launch: bf16 output.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 reduce_splits_bf16_kernel(const float* __restrict__ ws,
                           const float* __restrict__ scale,
@@ -538,6 +653,11 @@ reduce_splits_bf16_kernel(const float* __restrict__ ws,
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
   const size_t mn = (size_t)M * N;
   if (i >= mn) return;
+  if constexpr (BATCHED) {
+    ws += (size_t)blockIdx.y * splits * mn;
+    scale += (size_t)blockIdx.y * N;
+    out += (size_t)blockIdx.y * mn;
+  }
   float s = 0.0f;
   for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
   out[i] = __float2bfloat16_rn(scale[i % N] * s);
@@ -612,8 +732,10 @@ __host__ __device__ constexpr int wg_smem(bool packed) {
 // descriptor, with no register copy. Per 64-row K tile a warpgroup issues
 // 4 wgmma (m64n128k16) as one group and lets it run while it builds the
 // next tile's fragments; a stage is refilled only after the groups that
-// read it have completed. Two blocks share an SM.
-template <bool PACKED, bool VEC_X, bool VEC_C>
+// read it have completed. Two blocks share an SM. BATCHED (K5): as in
+// dec_kernel, one expert per row of blocks, and blocks whose rows of x are
+// all +0 over their K range skip every K tile.
+template <bool PACKED, bool VEC_X, bool VEC_C, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 2)
 wg_kernel(const __nv_bfloat16* __restrict__ x,
           const uint8_t* __restrict__ codes, const float* __restrict__ scale,
@@ -635,12 +757,16 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
   const int wcol = (warp / 4) * 64 + (warp % 4) * 16;  // warp's first column
   const int g = lane / 4;
   const int t = lane % 4;
-  const int m0 = blockIdx.y * WG_BM;
+  int m0 = blockIdx.y * WG_BM;
+  if constexpr (BATCHED) m0 = TO_EXPERT(WG_BM, PACKED ? K / 2 : K) * WG_BM;
   const int n0 = blockIdx.x * WG_BN;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int rend = PACKED ? kend / 2 : kend;
-  const int ntiles = (kend - kbeg + WG_BK - 1) / WG_BK;
+  int ntiles = (kend - kbeg + WG_BK - 1) / WG_BK;
+  if constexpr (BATCHED) {
+    if (!rows_nonzero<WG_BM, VEC_X>(x, M, K, m0, kbeg, kend)) ntiles = 0;
+  }
 
   auto load_tile = [&](int stage, int kt) {
     const int k0 = kbeg + kt * WG_BK;
@@ -796,47 +922,49 @@ struct Args {
   int M, K, N, rows_per_split;
 };
 
-template <bool PACKED, bool VEC>
+template <bool PACKED, bool VEC, bool BATCHED>
 void run_fp32(const Args& a, dim3 grid, int smem, cudaStream_t s) {
-  fp32_kernel<PACKED, VEC><<<grid, THREADS, smem, s>>>(
+  fp32_kernel<PACKED, VEC, BATCHED><<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(a.x), a.codes, a.scale, a.zero,
       static_cast<float*>(a.out), a.ws, a.M, a.K, a.N, a.rows_per_split);
 }
 
-template <bool PACKED, bool VEC_X, bool VEC_C>
+template <bool PACKED, bool VEC_X, bool VEC_C, bool BATCHED>
 void run_dec(const Args& a, dim3 grid, cudaStream_t s) {
-  dec_kernel<PACKED, VEC_X, VEC_C><<<grid, THREADS, dec_smem(PACKED), s>>>(
+  dec_kernel<PACKED, VEC_X, VEC_C, BATCHED>
+      <<<grid, THREADS, dec_smem(PACKED), s>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.codes, a.scale, a.zero,
       static_cast<__nv_bfloat16*>(a.out), a.ws, a.counters, a.M, a.K, a.N,
       a.rows_per_split);
 }
 
-template <bool PACKED, bool VEC_X, bool VEC_C>
+template <bool PACKED, bool VEC_X, bool VEC_C, bool BATCHED>
 void run_wg(const Args& a, dim3 grid, cudaStream_t s) {
-  wg_kernel<PACKED, VEC_X, VEC_C><<<grid, THREADS, wg_smem(PACKED), s>>>(
+  wg_kernel<PACKED, VEC_X, VEC_C, BATCHED>
+      <<<grid, THREADS, wg_smem(PACKED), s>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.codes, a.scale, a.zero,
       static_cast<__nv_bfloat16*>(a.out), a.ws, a.M, a.K, a.N,
       a.rows_per_split);
 }
 
 // Launch one of a kernel's instantiations, chosen by the alignment flags.
-#define DISPATCH(RUN, PACKED)                                       \
+#define DISPATCH(RUN, PACKED, BATCHED)                              \
   if (vec_x) {                                                      \
-    vec_c ? RUN<PACKED, true, true>(a, grid, s)                     \
-          : RUN<PACKED, true, false>(a, grid, s);                   \
+    vec_c ? RUN<PACKED, true, true, BATCHED>(a, grid, s)            \
+          : RUN<PACKED, true, false, BATCHED>(a, grid, s);          \
   } else {                                                          \
-    vec_c ? RUN<PACKED, false, true>(a, grid, s)                    \
-          : RUN<PACKED, false, false>(a, grid, s);                  \
+    vec_c ? RUN<PACKED, false, true, BATCHED>(a, grid, s)           \
+          : RUN<PACKED, false, false, BATCHED>(a, grid, s);         \
   }
 
-template <bool PACKED>
+template <bool PACKED, bool BATCHED>
 void dec(bool vec_x, bool vec_c, const Args& a, dim3 grid, cudaStream_t s) {
-  DISPATCH(run_dec, PACKED)
+  DISPATCH(run_dec, PACKED, BATCHED)
 }
 
-template <bool PACKED>
+template <bool PACKED, bool BATCHED>
 void wg(bool vec_x, bool vec_c, const Args& a, dim3 grid, cudaStream_t s) {
-  DISPATCH(run_wg, PACKED)
+  DISPATCH(run_wg, PACKED, BATCHED)
 }
 
 // Lets the four instantiations of a kernel use `bytes` of dynamic shared
@@ -851,20 +979,64 @@ cudaError_t allow_smem(const void* const (&fns)[4], int bytes) {
   return cudaSuccess;
 }
 
-template <bool PACKED>
+template <bool PACKED, bool BATCHED>
 cudaError_t allow_smem_all() {
   const void* const dec_fns[4] = {
-      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, true>),
-      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, false>),
-      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, true>),
-      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, false>)};
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, true, BATCHED>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, true, false, BATCHED>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, true, BATCHED>),
+      reinterpret_cast<const void*>(&dec_kernel<PACKED, false, false, BATCHED>)};
   const void* const wg_fns[4] = {
-      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, true>),
-      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, false>),
-      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, true>),
-      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, false>)};
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, true, BATCHED>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, true, false, BATCHED>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, true, BATCHED>),
+      reinterpret_cast<const void*>(&wg_kernel<PACKED, false, false, BATCHED>)};
   const cudaError_t e = allow_smem(dec_fns, dec_smem(PACKED));
   return e != cudaSuccess ? e : allow_smem(wg_fns, wg_smem(PACKED));
+}
+
+// One call of either C entry: `experts` slices of the operands (1 for the
+// 2-D entry), the grid's y axis covering every expert's row tiles.
+template <bool BATCHED>
+int launch(const Args& a, int experts, int packed, int kernel, bool vec_x,
+           bool vec_c, int gx, int gy, int splits, int smem_bytes,
+           cudaStream_t s) {
+  const dim3 grid(gx, gy, splits);
+  bool second_pass = splits > 1;
+  switch (kernel) {
+    case 0:
+      if (packed) {
+        vec_c ? run_fp32<true, true, BATCHED>(a, grid, smem_bytes, s)
+              : run_fp32<true, false, BATCHED>(a, grid, smem_bytes, s);
+      } else {
+        vec_c ? run_fp32<false, true, BATCHED>(a, grid, smem_bytes, s)
+              : run_fp32<false, false, BATCHED>(a, grid, smem_bytes, s);
+      }
+      break;
+    case 1:  // adds its splits itself
+      packed ? dec<true, BATCHED>(vec_x, vec_c, a, grid, s)
+             : dec<false, BATCHED>(vec_x, vec_c, a, grid, s);
+      second_pass = false;
+      break;
+    case 2:
+      packed ? wg<true, BATCHED>(vec_x, vec_c, a, grid, s)
+             : wg<false, BATCHED>(vec_x, vec_c, a, grid, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !second_pass) return static_cast<int>(err);
+  const size_t mn = (size_t)a.M * a.N;
+  const dim3 rgrid(static_cast<unsigned>((mn + THREADS - 1) / THREADS),
+                   experts);
+  if (kernel == 0) {
+    reduce_splits_kernel<BATCHED><<<rgrid, THREADS, 0, s>>>(
+        a.ws, a.scale, static_cast<float*>(a.out), a.M, a.N, splits);
+  } else {
+    reduce_splits_bf16_kernel<BATCHED><<<rgrid, THREADS, 0, s>>>(
+        a.ws, a.scale, static_cast<__nv_bfloat16*>(a.out), a.M, a.N, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -872,8 +1044,11 @@ cudaError_t allow_smem_all() {
 // Sets the tensor-core kernels' dynamic shared memory limits; call once
 // after loading the library. Returns the first CUDA error, or 0.
 extern "C" int dequant_matmul_2d_init() {
-  const cudaError_t e = allow_smem_all<true>();
-  return static_cast<int>(e != cudaSuccess ? e : allow_smem_all<false>());
+  cudaError_t e = allow_smem_all<true, false>();
+  if (e == cudaSuccess) e = allow_smem_all<false, false>();
+  if (e == cudaSuccess) e = allow_smem_all<true, true>();
+  if (e == cudaSuccess) e = allow_smem_all<false, true>();
+  return static_cast<int>(e);
 }
 
 // Plain C interface (bound with ctypes); every launch parameter comes from
@@ -894,46 +1069,33 @@ extern "C" int dequant_matmul_2d(const void* x, const void* codes,
                                  int vec_x, int vec_codes, int gx, int gy,
                                  int splits, int rows_per_split,
                                  int smem_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{x, static_cast<const uint8_t*>(codes),
                static_cast<const float*>(scale), static_cast<const float*>(zero),
                out, static_cast<float*>(ws), static_cast<int*>(counters),
                M, K, N, rows_per_split};
-  const dim3 grid(gx, gy, splits);
-  bool second_pass = splits > 1;
-  switch (kernel) {
-    case 0:
-      if (packed) {
-        vec_codes ? run_fp32<true, true>(a, grid, smem_bytes, s)
-                  : run_fp32<true, false>(a, grid, smem_bytes, s);
-      } else {
-        vec_codes ? run_fp32<false, true>(a, grid, smem_bytes, s)
-                  : run_fp32<false, false>(a, grid, smem_bytes, s);
-      }
-      break;
-    case 1:  // adds its splits itself
-      packed ? dec<true>(vec_x, vec_codes, a, grid, s)
-             : dec<false>(vec_x, vec_codes, a, grid, s);
-      second_pass = false;
-      break;
-    case 2:
-      packed ? wg<true>(vec_x, vec_codes, a, grid, s)
-             : wg<false>(vec_x, vec_codes, a, grid, s);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !second_pass) return static_cast<int>(err);
-  const size_t mn = (size_t)M * N;
-  const unsigned blocks = static_cast<unsigned>((mn + THREADS - 1) / THREADS);
-  if (kernel == 0) {
-    reduce_splits_kernel<<<blocks, THREADS, 0, s>>>(
-        a.ws, a.scale, static_cast<float*>(out), M, N, splits);
-  } else {
-    reduce_splits_bf16_kernel<<<blocks, THREADS, 0, s>>>(
-        a.ws, a.scale, static_cast<__nv_bfloat16*>(out), M, N, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, 1, packed, kernel, vec_x, vec_codes, gx, gy, splits,
+                       smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// K5, the same interface over E experts: x (E, M, K), codes (E, K/2, N) or
+// (E, K, N), scale and zero (E, 1, N), out (E, M, N), contiguous; gy is
+// E times the row tiles of one expert, `ws` holds E x splits x M x N
+// partial sums and `counters` gx * gy ints. Blocks whose rows of x are all
+// +0 over their K range read none of their codes.
+extern "C" int dequant_matmul_batched(const void* x, const void* codes,
+                                      const void* scale, const void* zero,
+                                      void* out, void* ws, void* counters,
+                                      int E, int M, int K, int N, int packed,
+                                      int kernel, int vec_x, int vec_codes,
+                                      int gx, int gy, int splits,
+                                      int rows_per_split, int smem_bytes,
+                                      void* stream) {
+  const Args a{x, static_cast<const uint8_t*>(codes),
+               static_cast<const float*>(scale), static_cast<const float*>(zero),
+               out, static_cast<float*>(ws), static_cast<int*>(counters),
+               M, K, N, rows_per_split};
+  return launch<true>(a, E, packed, kernel, vec_x, vec_codes, gx, gy, splits,
+                      smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* dequant_matmul_2d_error_string(int err) {

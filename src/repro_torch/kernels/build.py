@@ -22,8 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dequant_matmul.cu", "dequant_matmul_2d.cu", "flexround_quant.cu",
-           "qmatmul_int8.cu")
+SOURCES = ("dequant_matmul_2d.cu", "flexround_quant.cu", "qmatmul_int8.cu")
 
 
 def nvcc_path() -> str:

@@ -8,15 +8,16 @@ matmuls, and the per-expert product over stacked MoE weights), port of
 For CUDA tensors the wrappers launch hand-written kernels; for CPU tensors
 they run the plain versions in :mod:`repro_torch.kernels.ref`. A CUDA
 tensor never takes the plain version: the kernel launches or the wrapper
-raises. K1 and K2 run ``csrc/dequant_matmul_2d.cu`` in the regime that
+raises. All three run ``csrc/dequant_matmul_2d.cu`` in the regime that
 :func:`plan` picks from the shape: ``decode`` (bf16 x, M <= ``DECODE_MAX_M``:
 split-K, codes streamed through a cp.async ring onto the tensor cores),
-``mma`` (bf16 x, larger M: wgmma tiles) or ``fp32`` (float32 x, any M: CUDA-core multiply-adds, kept out of
-TF32). K5 runs
-``csrc/dequant_matmul.cu``. Each wrapper counts its launches in
-``<wrapper>.launches`` and per form in ``<wrapper>.forms``: the regime for
-K1/K2, packed or unpacked codes for K5. A call that runs the split-K
-reduction pass counts as one launch.
+``mma`` (bf16 x, larger M: wgmma tiles) or ``fp32`` (float32 x, any M:
+CUDA-core multiply-adds, kept out of TF32). K5 runs the same kernels over
+its E experts in one launch, and a block whose rows of x are all +0 over
+its K range (an expert no token was routed to) reads none of its codes.
+Each wrapper counts its launches in ``<wrapper>.launches`` and per form in
+``<wrapper>.forms``: the regime, and for K5 also packed or unpacked codes.
+A call that runs the split-K reduction pass counts as one launch.
 """
 from __future__ import annotations
 
@@ -30,17 +31,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
-_LIB = CudaLibrary("dequant_matmul.cu", {
-    "dequant_matmul_batched": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p]})
-_LIB_2D = CudaLibrary("dequant_matmul_2d.cu", {
+_LIB = CudaLibrary("dequant_matmul_2d.cu", {
     "dequant_matmul_2d": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
-    + [ctypes.c_void_p], "dequant_matmul_2d_init": []},
-    init="dequant_matmul_2d_init")
+    + [ctypes.c_void_p],
+    "dequant_matmul_batched": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    + [ctypes.c_void_p],
+    "dequant_matmul_2d_init": []}, init="dequant_matmul_2d_init")
 
 _MAX_GRID_Y = 65535
 _MAX_GRID_Z = 65535
-_BM = 32  # rows per block of the K5 kernel in csrc/dequant_matmul.cu
 
 # csrc/dequant_matmul_2d.cu
 SMS = 132                # streaming multiprocessors of an H100 SXM
@@ -52,7 +51,11 @@ K_GRAIN = 8              # decode and mma split K in multiples of 8 rows
 MMA_MIN_ROWS = 256       # mma splits: their partial sums are M x N each
 MMA_SPLIT_BELOW = SMS // 2  # mma grids of fewer tiles split K
 DECODE_BLOCKS = 2 * SMS  # decode grids split K up to this many blocks
-MAX_SPLIT_TILES = 1024   # output tiles of a split decode launch, at most
+DECODE_OCCUPANCY = 4     # dec_kernel blocks resident per SM (its registers)
+DECODE_ACTIVE = 4        # K5 at decode: experts taken to hold tokens (a
+                         # serving step's 4 slots routed top-1)
+MAX_SPLIT_TILES = 1024   # output tiles (of all experts) of a split decode
+                         # launch, at most: one counter each
 FP_BM, FP_BN = 4, 128    # fp32_kernel block: rows of x x columns
 FP_ROW_STEP = 128        # code rows one pass of an fp32_kernel block covers
 FP_MAX_ROWS = 1024       # code rows per split: x chunk <= 32 KB of smem
@@ -62,12 +65,13 @@ FP_RED_BYTES = 8 * FP_BM * FP_BN * 4  # cross-warp reduction buffer
 
 @dataclass(frozen=True)
 class Plan:
-    """How one K1/K2 call launches. ``rows_per_split`` counts K rows
+    """How one K1/K2/K5 call launches. ``rows_per_split`` counts K rows
     (decode, mma) or code rows (fp32_kernel);
     ``workspace_bytes`` is 0 with one split."""
     regime: str                  # "decode", "mma" or "fp32"
     kernel: int                  # the C entry's `kernel`
-    grid: Tuple[int, int, int]   # (column tiles, row tiles, K splits)
+    grid: Tuple[int, int, int]   # (column tiles, row tiles of all experts,
+                                 #  K splits)
     rows_per_split: int
     workspace_bytes: int
     smem_bytes: int              # dynamic shared memory (fp32_kernel)
@@ -104,44 +108,66 @@ def _fp32_split(R: int, base: int) -> int:
 
 
 def plan(M: int, K: int, N: int, dtype: torch.dtype, packed: bool,
-         x_ptr: int = 0, codes_ptr: int = 0) -> Plan:
+         x_ptr: int = 0, codes_ptr: int = 0, E: int = 1) -> Plan:
     """The launch of a K1 (``packed``) or K2 call on x (M, K) of ``dtype``
-    and codes (K/2 or K, N) at the given device addresses. bf16 x: the
-    decode regime (dec_kernel) up to DECODE_MAX_M rows, the mma regime
-    (wg_kernel) above; float32 x runs fp32_kernel. Pure: no device is
-    touched."""
-    if M < 1 or K < 1 or N < 1 or (packed and K % 2):
-        raise ValueError(f"dequant_matmul: no plan for M={M} K={K} N={N} "
-                         f"packed={packed}")
+    and codes (K/2 or K, N) at the given device addresses, or of a K5 call
+    on ``E`` such products (x (E, M, K), codes (E, K/2 or K, N)). bf16 x:
+    the decode regime (dec_kernel) up to DECODE_MAX_M rows, the mma regime
+    (wg_kernel) above; float32 x runs fp32_kernel. The grid's y axis holds
+    every expert's row tiles. The K-split decision of the mma and fp32
+    regimes counts the output tiles of all E experts. At decode, K5 splits
+    K for the experts that hold tokens: the blocks of an expert whose rows
+    of x are all zero skip their codes, and which experts those are is
+    known only on the device, so the split takes min(E, DECODE_ACTIVE)
+    experts as active (a serving step's 4 slots routed top-1) and makes
+    their blocks fill every SM at the decode kernel's occupancy. With 16
+    experts of 40 or 64 column tiles that is 4 or 3 splits; a dense stack
+    runs as many more blocks, each a shorter K walk. A split decode launch
+    counts its tiles on MAX_SPLIT_TILES counters, so K5 does not split
+    where all experts' tiles exceed them. With ``E = 1`` the plan is the
+    K1/K2 plan. Pure: no device is touched."""
+    if M < 1 or K < 1 or N < 1 or E < 1 or (packed and K % 2):
+        raise ValueError(f"dequant_matmul: no plan for E={E} M={M} K={K} "
+                         f"N={N} packed={packed}")
     vec_codes = N % 16 == 0 and codes_ptr % 16 == 0
     vec_x = dtype == torch.bfloat16 and K % 8 == 0 and x_ptr % 16 == 0
     if dtype == torch.bfloat16 and M <= DECODE_MAX_M:
         # ~2 blocks per SM, so that enough code bytes are in flight
         regime, kernel = "decode", 1
         gx, gy = math.ceil(N / TILES[1][1]), math.ceil(M / TILES[1][0])
-        rps = _tc_split(K, gx * gy, DECODE_BLOCKS, K_GRAIN)
+        if E == 1:
+            rps = _tc_split(K, gx * gy, DECODE_BLOCKS, K_GRAIN)
+        elif E * gx * gy <= MAX_SPLIT_TILES:
+            rps = _tc_split(K, min(E, DECODE_ACTIVE) * gx * gy,
+                            DECODE_OCCUPANCY * SMS, K_GRAIN)
+        else:
+            rps = K
         splits, smem = math.ceil(K / rps), 0
     elif dtype == torch.bfloat16:
         # K split where the grid leaves most SMs idle
         regime, kernel = "mma", 2
         gx, gy = math.ceil(N / TILES[2][1]), math.ceil(M / TILES[2][0])
-        rps = _tc_split(K, gx * gy, MMA_SPLIT_BELOW, MMA_MIN_ROWS)
+        rps = _tc_split(K, E * gx * gy, MMA_SPLIT_BELOW, MMA_MIN_ROWS)
         splits, smem = math.ceil(K / rps), 0
     else:
         regime, kernel = "fp32", 0
         R = K // 2 if packed else K
         gx, gy = math.ceil(N / FP_BN), math.ceil(M / FP_BM)
-        rps = _fp32_split(R, gx * gy)
+        rps = _fp32_split(R, E * gx * gy)
         splits = math.ceil(R / rps)
         padded = math.ceil(rps / FP_ROW_STEP) * FP_ROW_STEP
         smem = max(padded * (2 if packed else 1) * 16, FP_RED_BYTES)
-    if gy > _MAX_GRID_Y or splits > _MAX_GRID_Z or (
-            splits > 1 and regime == "decode" and gx * gy > MAX_SPLIT_TILES):
-        raise ValueError(f"dequant_matmul: shape ({M}, {K}, {N}) exceeds the "
-                         "kernel's grid")
+    gy *= E
+    if gy > _MAX_GRID_Y or splits > _MAX_GRID_Z:
+        raise ValueError(f"dequant_matmul: shape ({E}, {M}, {K}, {N}) "
+                         "exceeds the kernel's grid")
+    if splits > 1 and regime == "decode" and gx * gy > MAX_SPLIT_TILES:
+        raise ValueError(f"dequant_matmul: a split decode launch of {gx * gy} "
+                         f"output tiles exceeds the {MAX_SPLIT_TILES} split "
+                         "counters")
     return Plan(regime=regime, kernel=kernel, grid=(gx, gy, splits),
                 rows_per_split=rps,
-                workspace_bytes=4 * splits * M * N if splits > 1 else 0,
+                workspace_bytes=4 * splits * E * M * N if splits > 1 else 0,
                 smem_bytes=smem, vec_codes=vec_codes, vec_x=vec_x)
 
 
@@ -176,23 +202,6 @@ def _validate(x, codes, scale, zero, packed: bool) -> None:
            f"shape ({E}, {M}, {K}, {N}) exceeds the kernels' int indices")
 
 
-def _launch(x, codes, scale, zero, packed: bool) -> torch.Tensor:
-    """K5: one launch over E experts (none for an empty output)."""
-    _validate(x, codes, scale, zero, packed)
-    E, M, K = x.shape
-    N = codes.shape[2]
-    _check(E <= _MAX_GRID_Z and M <= _MAX_GRID_Y * _BM,
-           f"shape ({E}, {M}, {K}, {N}) exceeds the kernel's grid")
-    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
-    if E == 0 or M == 0 or N == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _LIB.call("dequant_matmul_batched", x.data_ptr(), codes.data_ptr(),
-              scale.data_ptr(), zero.data_ptr(), out.data_ptr(), E, M, K, N,
-              int(packed), int(x.dtype == torch.bfloat16), stream)
-    return out
-
-
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -206,35 +215,47 @@ def _counters(device: torch.device) -> torch.Tensor:
     return _COUNTERS[device]
 
 
-def _launch_2d(fn, x, codes, scale, zero, packed: bool) -> torch.Tensor:
-    """K1/K2: one call as :func:`plan` lays it out, counted on ``fn``; the
-    split-K workspace comes from ``torch.empty`` (graph-capture safe), the
-    split counters are allocated once per device."""
-    _check(x.dim() == 2 and codes.dim() == 2, "x and codes must be 2-D")
-    _validate(x[None], codes[None], scale[None], zero[None], packed)
-    M, K = x.shape
-    N = codes.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0 or N == 0:
+def _launch(fn, x, codes, scale, zero, packed: bool,
+            batched: bool) -> torch.Tensor:
+    """One call of x (E, M, K) as :func:`plan` lays it out, counted on
+    ``fn``: K5 (``batched``) through the C entry over E experts, K1/K2 with
+    E = 1 through the 2-D entry. The split-K workspace comes from
+    ``torch.empty`` (graph-capture safe), the split counters are allocated
+    once per device."""
+    _validate(x, codes, scale, zero, packed)
+    E, M, K = x.shape
+    N = codes.shape[2]
+    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if E == 0 or M == 0 or N == 0:
         return out
     if K == 0:
         return out.zero_()
-    p = plan(M, K, N, x.dtype, packed, x.data_ptr(), codes.data_ptr())
+    p = plan(M, K, N, x.dtype, packed, x.data_ptr(), codes.data_ptr(), E=E)
     ws = torch.empty((p.workspace_bytes // 4,), dtype=torch.float32,
                      device=x.device) if p.splits > 1 else None
     counters = (_counters(x.device) if p.splits > 1 and p.regime == "decode"
                 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _LIB_2D.call("dequant_matmul_2d", x.data_ptr(), codes.data_ptr(),
-                 scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-                 0 if ws is None else ws.data_ptr(),
-                 0 if counters is None else counters.data_ptr(), M, K, N,
-                 int(packed), p.kernel, int(p.vec_x), int(p.vec_codes),
-                 p.grid[0], p.grid[1], p.splits, p.rows_per_split,
-                 p.smem_bytes, stream)
+    ptrs = (x.data_ptr(), codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            0 if counters is None else counters.data_ptr())
+    rest = (M, K, N, int(packed), p.kernel, int(p.vec_x), int(p.vec_codes),
+            p.grid[0], p.grid[1], p.splits, p.rows_per_split, p.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if batched:
+        _LIB.call("dequant_matmul_batched", *ptrs, E, *rest)
+        fn.forms["packed" if packed else "unpacked"] += 1
+    else:
+        _LIB.call("dequant_matmul_2d", *ptrs, *rest)
     fn.launches += 1
     fn.forms[p.regime] += 1
     return out
+
+
+def _launch_2d(fn, x, codes, scale, zero, packed: bool) -> torch.Tensor:
+    """K1/K2: x (M, K) and codes (K/2 or K, N) as a stack of one."""
+    _check(x.dim() == 2 and codes.dim() == 2, "x and codes must be 2-D")
+    return _launch(fn, x[None], codes[None], scale[None], zero[None], packed,
+                   batched=False)[0]
 
 
 def dequant_matmul_w4(x, codes, scale, zero):
@@ -256,15 +277,13 @@ def dequant_matmul_w8(x, codes, scale, zero):
 def dequant_matmul_batched(x, codes, scale, zero, packed: bool):
     """K5: x (E, M, K) float32/bfloat16; codes (E, K//2, N) nibble-packed
     along K (``packed``) or (E, K, N) uint8; scale/zero (E, 1, N) float32.
-    Returns (E, M, N) in x's dtype: per expert x[e] @ dequant(codes[e])."""
+    Returns (E, M, N) in x's dtype: per expert x[e] @ dequant(codes[e]).
+    Blocks whose rows of x are all +0 write +0 without reading their codes
+    (exact: the full sum of +0 * (q - zero) is +0 too)."""
     if x.device.type == "cpu":
         return ref.dequant_matmul_batched_ref(x, codes, scale, zero, packed)
-    out = _launch(x, codes, scale, zero, packed=packed)
-    if out.numel() == 0:
-        return out
-    dequant_matmul_batched.launches += 1
-    dequant_matmul_batched.forms["packed" if packed else "unpacked"] += 1
-    return out
+    return _launch(dequant_matmul_batched, x, codes, scale, zero, packed,
+                   batched=True)
 
 
 dequant_matmul_w4.launches = 0
@@ -272,4 +291,5 @@ dequant_matmul_w4.forms = {"decode": 0, "mma": 0, "fp32": 0}
 dequant_matmul_w8.launches = 0
 dequant_matmul_w8.forms = {"decode": 0, "mma": 0, "fp32": 0}
 dequant_matmul_batched.launches = 0
-dequant_matmul_batched.forms = {"packed": 0, "unpacked": 0}
+dequant_matmul_batched.forms = {"packed": 0, "unpacked": 0, "decode": 0,
+                                "mma": 0, "fp32": 0}

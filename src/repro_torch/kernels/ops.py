@@ -14,8 +14,9 @@ names of ``analysis/diffcheck.py:EXPECTED_KERNELS`` in the reference (the
 plain versions carry a ``_ref`` suffix; a weight with more than one batch
 dim is dequantized, ``dequantize-fallback``). ``launch_counts`` and
 ``reset_launch_counts`` read and zero the per-kernel launch counters and
-their forms: the regime K1 and K2 took (``dequant_matmul_w4[decode]``,
-``[mma]``, ``[fp32]``, the same for ``dequant_matmul_w8``) and K5's codes
+their forms: the regime each dequant-matmul took (``dequant_matmul_w4[decode]``,
+``[mma]``, ``[fp32]``, the same for ``dequant_matmul_w8`` and
+``dequant_matmul_batched``) and K5's codes
 (``dequant_matmul_batched[packed]``, ``[unpacked]``).
 """
 from __future__ import annotations
@@ -190,7 +191,10 @@ def qtensor_matmul(x, qt: QTensor, *, a_state=None, backend: str = "auto"):
     - 8-bit weights without a_state, and <=4-bit weights that could not
       pack -> W8 dequant-matmul (K2).
     - stacked expert weights (E, K, N) with x (..., E, n, K) -> per-expert
-      dequant-matmul (K5); activations are quantized by the caller.
+      dequant-matmul (K5), on the K1/K2 kernels with an expert axis; the
+      blocks of experts whose rows of x are all zero (no token routed
+      there) skip their weights on the card. Activations are quantized by
+      the caller.
     - more than one batch dim -> dequantized, then a plain product (no
       kernel, as in the reference).
     """

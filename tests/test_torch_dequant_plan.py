@@ -1,16 +1,18 @@
-"""K1/K2 on Hopper: the launch planner, the factored form the kernels
+"""K1/K2/K5 on Hopper: the launch planner, the factored form the kernels
 compute, and the precondition that makes it exact.
 
 ``csrc/dequant_matmul_2d.cu`` computes ``scale[n] * sum_k x[m, k] *
 (q[k, n] - zero[n])`` with (q - zero) as bf16 on the tensor cores (decode
-and mma regimes) or as float32 on the CUDA cores (float32 x). That is
+and mma regimes) or as float32 on the CUDA cores (float32 x), on one
+operand (K1/K2) or per expert of a stack (K5), where a block whose rows of
+x are all zero over its K range adds +0 without reading its codes. That is
 exact only because zero points are integers in [0, 2^b - 1]; the tests
 here hold that precondition for everything export produces, check the
 bit tricks the kernels use to build (q - zero), hold the factored form
-against the reference's interpreted Pallas kernel, and pin the pure
-planning function (regime, grid, K splits, workspace, alignment) at every
-main-path shape. The kernels themselves run on the card only
-(``chip_smoke.py``).
+(and, for K5, its block-by-block skip) against the reference's interpreted
+Pallas kernels, and pin the pure planning function (regime, grid, K
+splits, workspace, alignment, experts) at every main-path shape. The
+kernels themselves run on the card only (``chip_smoke.py``).
 """
 import math
 
@@ -121,6 +123,218 @@ def test_plan_refuses_what_no_kernel_takes():
         k12.plan(4, 577, 64, torch.bfloat16, packed=True)
     with pytest.raises(ValueError, match="no plan"):
         k12.plan(0, 64, 64, torch.bfloat16, packed=False)
+    with pytest.raises(ValueError, match="no plan"):
+        k12.plan(4, 64, 64, torch.bfloat16, packed=False, E=0)
+
+
+# The K1/K2 planner as it stood before it took an expert count, at every
+# shape the tests above cover: M K N codes x x_ptr codes_ptr | regime
+# kernel grid (3) rows_per_split workspace_bytes smem_bytes vec_codes vec_x
+_K12_PLANS = """
+1 576 1536 w4 bf16 0 0  decode 1 12 1 18 32 110592 0 11
+4 576 192 w4 bf16 0 0  decode 1 2 1 72 8 221184 0 11
+4 576 192 w8 bf16 0 0  decode 1 2 1 72 8 221184 0 11
+4 576 576 w4 bf16 0 0  decode 1 5 1 36 16 331776 0 11
+4 576 576 w8 bf16 0 0  decode 1 5 1 36 16 331776 0 11
+4 576 1536 w4 bf16 0 0  decode 1 12 1 18 32 442368 0 11
+4 576 1536 w4 bf16 2 0  decode 1 12 1 18 32 442368 0 10
+4 576 1536 w8 bf16 0 0  decode 1 12 1 18 32 442368 0 11
+4 1536 576 w4 bf16 0 0  decode 1 5 1 48 32 442368 0 11
+4 1536 576 w8 bf16 0 0  decode 1 5 1 48 32 442368 0 11
+4 5120 1024 w4 bf16 0 0  decode 1 8 1 32 160 524288 0 11
+4 5120 1024 w8 bf16 0 0  decode 1 8 1 32 160 524288 0 11
+4 5120 5120 w4 bf16 0 0  decode 1 40 1 7 736 573440 0 11
+4 5120 5120 w8 bf16 0 0  decode 1 40 1 7 736 573440 0 11
+4 5120 8192 w4 bf16 0 0  decode 1 64 1 5 1024 655360 0 11
+4 5120 8192 w8 bf16 0 0  decode 1 64 1 5 1024 655360 0 11
+4 8192 5120 w4 bf16 0 0  decode 1 40 1 7 1176 573440 0 11
+4 8192 5120 w8 bf16 0 0  decode 1 40 1 7 1176 573440 0 11
+7 576 1536 w4 bf16 0 0  decode 1 12 1 18 32 774144 0 11
+7 577 200 w8 bf16 0 0  decode 1 2 1 37 16 207200 0 00
+7 578 200 w4 bf16 0 0  decode 1 2 1 37 16 207200 0 00
+8 576 1536 w4 bf16 0 0  decode 1 12 1 18 32 884736 0 11
+9 576 1536 w4 bf16 0 0  mma 2 12 1 2 288 110592 0 11
+16 576 192 w4 bf16 0 0  mma 2 2 1 2 288 24576 0 11
+16 576 192 w8 bf16 0 0  mma 2 2 1 2 288 24576 0 11
+16 576 576 w4 bf16 0 0  mma 2 5 1 2 288 73728 0 11
+16 576 576 w8 bf16 0 0  mma 2 5 1 2 288 73728 0 11
+16 576 1536 w4 bf16 0 0  mma 2 12 1 2 288 196608 0 11
+16 576 1536 w8 bf16 0 0  mma 2 12 1 2 288 196608 0 11
+16 1536 576 w4 bf16 0 0  mma 2 5 1 6 256 221184 0 11
+16 1536 576 w8 bf16 0 0  mma 2 5 1 6 256 221184 0 11
+16 5120 1024 w4 bf16 0 0  mma 2 8 1 9 576 589824 0 11
+16 5120 1024 w8 bf16 0 0  mma 2 8 1 9 576 589824 0 11
+16 5120 5120 w4 bf16 0 0  mma 2 40 1 2 2560 655360 0 11
+16 5120 5120 w8 bf16 0 0  mma 2 40 1 2 2560 655360 0 11
+16 5120 8192 w4 bf16 0 0  mma 2 64 1 2 2560 1048576 0 11
+16 5120 8192 w8 bf16 0 0  mma 2 64 1 2 2560 1048576 0 11
+16 8192 5120 w4 bf16 0 0  mma 2 40 1 2 4096 655360 0 11
+16 8192 5120 w8 bf16 0 0  mma 2 40 1 2 4096 655360 0 11
+32 576 192 w4 bf16 0 0  mma 2 2 1 2 288 49152 0 11
+32 576 192 w8 bf16 0 0  mma 2 2 1 2 288 49152 0 11
+32 576 576 w4 bf16 0 0  mma 2 5 1 2 288 147456 0 11
+32 576 576 w8 bf16 0 0  mma 2 5 1 2 288 147456 0 11
+32 576 1536 w4 bf16 0 0  mma 2 12 1 2 288 393216 0 11
+32 576 1536 w8 bf16 0 0  mma 2 12 1 2 288 393216 0 11
+32 1536 576 w4 bf16 0 0  mma 2 5 1 6 256 442368 0 11
+32 1536 576 w8 bf16 0 0  mma 2 5 1 6 256 442368 0 11
+32 5120 1024 w4 bf16 0 0  mma 2 8 1 9 576 1179648 0 11
+32 5120 1024 w8 bf16 0 0  mma 2 8 1 9 576 1179648 0 11
+32 5120 5120 w4 bf16 0 0  mma 2 40 1 2 2560 1310720 0 11
+32 5120 5120 w8 bf16 0 0  mma 2 40 1 2 2560 1310720 0 11
+32 5120 8192 w4 bf16 0 0  mma 2 64 1 2 2560 2097152 0 11
+32 5120 8192 w8 bf16 0 0  mma 2 64 1 2 2560 2097152 0 11
+32 8192 5120 w4 bf16 0 0  mma 2 40 1 2 4096 1310720 0 11
+32 8192 5120 w8 bf16 0 0  mma 2 40 1 2 4096 1310720 0 11
+40 576 1536 w8 bf16 0 1  mma 2 12 1 2 288 491520 0 01
+40 578 200 w4 bf16 0 0  mma 2 2 1 2 296 64000 0 00
+64 576 192 w4 bf16 0 0  mma 2 2 1 2 288 98304 0 11
+64 576 192 w8 bf16 0 0  mma 2 2 1 2 288 98304 0 11
+64 576 576 w4 bf16 0 0  mma 2 5 1 2 288 294912 0 11
+64 576 576 w8 bf16 0 0  mma 2 5 1 2 288 294912 0 11
+64 576 1536 w4 bf16 0 0  mma 2 12 1 2 288 786432 0 11
+64 576 1536 w8 bf16 0 0  mma 2 12 1 2 288 786432 0 11
+64 1536 576 w4 bf16 0 0  mma 2 5 1 6 256 884736 0 11
+64 1536 576 w8 bf16 0 0  mma 2 5 1 6 256 884736 0 11
+64 5120 1024 w4 bf16 0 0  mma 2 8 1 9 576 2359296 0 11
+64 5120 1024 w8 bf16 0 0  mma 2 8 1 9 576 2359296 0 11
+64 5120 5120 w4 bf16 0 0  mma 2 40 1 2 2560 2621440 0 11
+64 5120 5120 w8 bf16 0 0  mma 2 40 1 2 2560 2621440 0 11
+64 5120 8192 w4 bf16 0 0  mma 2 64 1 2 2560 4194304 0 11
+64 5120 8192 w8 bf16 0 0  mma 2 64 1 2 2560 4194304 0 11
+64 8192 5120 w4 bf16 0 0  mma 2 40 1 2 4096 2621440 0 11
+64 8192 5120 w8 bf16 0 0  mma 2 40 1 2 4096 2621440 0 11
+65 576 1536 w4 bf16 0 0  mma 2 12 1 2 288 798720 0 11
+65 5120 1024 w4 bf16 0 0  mma 2 8 1 9 576 2396160 0 11
+512 576 192 w4 bf16 0 0  mma 2 2 4 2 288 786432 0 11
+512 576 192 w8 bf16 0 0  mma 2 2 4 2 288 786432 0 11
+512 576 576 w4 bf16 0 0  mma 2 5 4 2 288 2359296 0 11
+512 576 576 w8 bf16 0 0  mma 2 5 4 2 288 2359296 0 11
+512 576 1536 w4 bf16 0 0  mma 2 12 4 2 288 6291456 0 11
+512 576 1536 w8 bf16 0 0  mma 2 12 4 2 288 6291456 0 11
+512 1536 576 w4 bf16 0 0  mma 2 5 4 4 384 4718592 0 11
+512 1536 576 w8 bf16 0 0  mma 2 5 4 4 384 4718592 0 11
+512 5120 1024 w4 bf16 0 0  mma 2 8 4 3 1712 6291456 0 11
+512 5120 1024 w8 bf16 0 0  mma 2 8 4 3 1712 6291456 0 11
+512 5120 5120 w4 bf16 0 0  mma 2 40 4 1 5120 0 0 11
+512 5120 5120 w8 bf16 0 0  mma 2 40 4 1 5120 0 0 11
+512 5120 8192 w4 bf16 0 0  mma 2 64 4 1 5120 0 0 11
+512 5120 8192 w8 bf16 0 0  mma 2 64 4 1 5120 0 0 11
+512 8192 5120 w4 bf16 0 0  mma 2 40 4 1 8192 0 0 11
+512 8192 5120 w8 bf16 0 0  mma 2 40 4 1 8192 0 0 11
+4 576 1536 w4 f32 0 0  fp32 0 12 1 12 26 294912 16384 10
+7 577 200 w8 f32 0 0  fp32 0 2 2 34 17 190400 16384 00
+512 8192 5120 w4 f32 0 0  fp32 0 40 128 4 1024 41943040 32768 10
+"""
+_K12_CASES = [line.split() for line in _K12_PLANS.strip().splitlines()]
+
+
+@pytest.mark.parametrize("row", _K12_CASES, ids=["-".join(r[:7]) for r in
+                                                 _K12_CASES])
+def test_plan_with_one_expert_is_the_k1_k2_plan(row):
+    """With E = 1 (the default) every field of the plan is what the K1/K2
+    planner gave before the expert axis existed."""
+    M, K, N = (int(v) for v in row[:3])
+    dtype = torch.bfloat16 if row[4] == "bf16" else torch.float32
+    args = (M, K, N, dtype, row[3] == "w4", int(row[5]), int(row[6]))
+    p = k12.plan(*args, E=1)
+    assert p == k12.plan(*args)
+    want = k12.Plan(regime=row[7], kernel=int(row[8]),
+                    grid=tuple(int(v) for v in row[9:12]),
+                    rows_per_split=int(row[12]), workspace_bytes=int(row[13]),
+                    smem_bytes=int(row[14]), vec_codes=row[15][0] == "1",
+                    vec_x=row[15][1] == "1")
+    assert p == want
+
+
+# K5's main-path calls: 16 experts, capacity 4 (decode and prefill) and 40
+# (export), the expert stacks (5120, 8192) and (8192, 5120)
+K5_CASES = [(M, K, N, packed, dt) for M in (4, 40)
+            for K, N in ((5120, 8192), (8192, 5120)) for packed in (True, False)
+            for dt in ("bf16", "f32")]
+
+
+@pytest.mark.parametrize("M,K,N,packed,dt", K5_CASES,
+                         ids=[f"m{M}k{K}n{N}{'w4' if p else 'w8'}{dt}"
+                              for M, K, N, p, dt in K5_CASES])
+def test_plan_experts_at_k5_shapes(M, K, N, packed, dt):
+    """E = 16: decode at M = 4, mma at M = 40 (bf16), fp32 for float32 x;
+    the y axis holds the 16 experts' row tiles. Decode splits K so that the
+    tiles of DECODE_ACTIVE experts fill every SM at the decode kernel's
+    occupancy (3 splits of 64 column tiles, 4 of 40), its 16 x 64 or
+    16 x 40 tiles within the split counters; the mma grid holds 16 x 64 or
+    16 x 40 tiles, far above its split target, and runs one split; fp32
+    splits K (its x chunk is bounded by shared memory). Split launches keep
+    one E x M x N partial sum per split."""
+    E = 16
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    p = k12.plan(M, K, N, dtype, packed, E=E)
+    regime = "fp32" if dt == "f32" else ("decode" if M == 4 else "mma")
+    assert p.regime == regime
+    bm, bn = (k12.FP_BM, k12.FP_BN) if regime == "fp32" else k12.TILES[p.kernel]
+    gx = math.ceil(N / bn)
+    assert p.grid[:2] == (gx, E * math.ceil(M / bm))
+    R = K // 2 if packed and regime == "fp32" else K
+    assert (p.splits - 1) * p.rows_per_split < R <= p.splits * p.rows_per_split
+    if regime == "mma":
+        assert p.splits == 1 and p.workspace_bytes == 0
+    else:
+        assert p.workspace_bytes == 4 * p.splits * E * M * N
+    if regime == "decode":
+        assert p.splits == {64: 3, 40: 4}[gx]
+        assert p.rows_per_split % k12.K_GRAIN == 0
+        assert p.grid[0] * p.grid[1] <= k12.MAX_SPLIT_TILES
+        active = k12.DECODE_ACTIVE * gx * p.splits
+        assert active >= k12.DECODE_OCCUPANCY * k12.SMS
+    assert p.vec_codes and p.vec_x == (dt == "bf16")
+
+
+@pytest.mark.parametrize("M,K,N,packed", [(7, 578, 200, True),
+                                          (7, 577, 200, False),
+                                          (40, 578, 200, True),
+                                          (4, 576, 1536, True)])
+@pytest.mark.parametrize("E", [1, 3, 16])
+def test_plan_experts_ragged_and_split(E, M, K, N, packed):
+    """Small grids split K: the decision counts the output tiles of all E
+    experts (mma) or of min(E, DECODE_ACTIVE) experts against a twice
+    larger target (decode), so more experts never give more splits than
+    one; a split decode launch keeps one counter per output tile of every
+    expert, within MAX_SPLIT_TILES; the splits cover K once, in multiples
+    of 8 rows; the workspace holds E x splits x M x N float32 partial
+    sums."""
+    p = k12.plan(M, K, N, torch.bfloat16, packed, E=E)
+    one = k12.plan(M, K, N, torch.bfloat16, packed)
+    bm, bn = k12.TILES[p.kernel]
+    gx, gy = math.ceil(N / bn), math.ceil(M / bm)
+    assert p.regime == one.regime and p.grid[:2] == (gx, E * gy)
+    assert (p.splits - 1) * p.rows_per_split < K <= p.splits * p.rows_per_split
+    assert p.splits == 1 or p.rows_per_split % k12.K_GRAIN == 0
+    assert p.splits <= one.splits
+    assert p.workspace_bytes == (4 * p.splits * E * M * N if p.splits > 1
+                                 else 0)
+    if p.regime == "decode" and p.splits > 1:
+        assert gx * E * gy <= k12.MAX_SPLIT_TILES
+
+
+def test_plan_experts_refused_beyond_the_grid(monkeypatch):
+    """More row tiles of all experts than the grid's y axis takes are
+    refused; K5 at decode runs one split where its tiles would exceed the
+    split counters (K1/K2, whose split always fits, refuse such a plan)."""
+    p = k12.plan(4, 5120, 8192, torch.bfloat16, True, E=65535)
+    assert p.grid[1] == 65535
+    with pytest.raises(ValueError, match="exceeds the kernel's grid"):
+        k12.plan(4, 5120, 8192, torch.bfloat16, True, E=65536)
+    with pytest.raises(ValueError, match="exceeds the kernel's grid"):
+        k12.plan(40, 5120, 8192, torch.float32, True, E=6554)
+    p = k12.plan(4, 5120, 8192, torch.bfloat16, True, E=17)
+    assert p.splits == 1 and p.grid[0] * p.grid[1] == 17 * 64
+    p = k12.plan(7, 578, 200, torch.bfloat16, True, E=3)
+    assert p.splits > 1 and p.grid[0] * p.grid[1] == 6
+    monkeypatch.setattr(k12, "MAX_SPLIT_TILES", 5)
+    assert k12.plan(7, 578, 200, torch.bfloat16, True, E=3).splits == 1
+    monkeypatch.setattr(k12, "MAX_SPLIT_TILES", 1)
+    with pytest.raises(ValueError, match="split counters"):
+        k12.plan(7, 578, 200, torch.bfloat16, True)
 
 
 # ------------------------------------------------- (q - zero), bit by bit
@@ -217,6 +431,83 @@ def test_factored_form_matches_pallas_interpret(M, K, N, packed, dtype):
     want = np.asarray(jfn(jx, jnp.asarray(codes), jnp.asarray(scale),
                           jnp.asarray(zero), interpret=True), np.float32)
     assert got.dtype == dtype and got.shape == (M, N)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2**-7, atol=1e-6))
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+def _blocked_batched(x, codes, scale, zero, packed, p):
+    """K5's kernels block by block in plain torch, as ``p`` lays them out:
+    per expert, row tile and K split, a block whose rows of x are all +-0
+    over its K range adds +0 (it reads no codes), any other adds the float32
+    sum of x * (q - zero); the splits add in split order from +0, the scale
+    comes once, then the rounding to x's type."""
+    E, M, K = x.shape
+    q = ref.unpack_f32(codes, axis=1) if packed else codes.float()
+    qz = q - zero  # (E, K, N) exact integers
+    bm = k12.FP_BM if p.regime == "fp32" else k12.TILES[p.kernel][0]
+    # fp32_kernel splits code rows, the tensor-core kernels K rows
+    kps = p.rows_per_split * (2 if packed and p.regime == "fp32" else 1)
+    out = torch.zeros((E, M, codes.shape[2]))
+    blocks = skipped = 0
+    for e in range(E):
+        for m0 in range(0, M, bm):
+            acc = torch.zeros((min(bm, M - m0), codes.shape[2]))
+            for k0 in range(0, K, kps):
+                xs = x[e, m0:m0 + bm, k0:k0 + kps].float()
+                blocks += 1
+                if bool((xs != 0).any()):
+                    acc = acc + xs @ qz[e, k0:k0 + kps]
+                else:
+                    skipped += 1  # adds +0: acc is unchanged
+            out[e, m0:m0 + bm] = acc
+    assert blocks == E * math.ceil(M / bm) * p.splits
+    return (scale * out).to(x.dtype), skipped
+
+
+BATCHED = [(4, 5, 64, 24, True), (3, 7, 126, 129, True),
+           (4, 4, 33, 24, False), (3, 12, 128, 120, False),
+           (2, 40, 62, 8, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N,packed", BATCHED)
+def test_batched_factored_form_with_skip_matches_pallas_interpret(
+        E, M, K, N, packed, dtype):
+    """K5's blocks (:func:`_blocked_batched` under the plan for E experts:
+    decode, mma or fp32, most of these small grids split K) against the
+    reference's dequant_matmul_batched (Pallas, interpret mode). Expert 0's
+    rows are zero (half of them -0), expert 1's zero over the first half of
+    K only; the rest dense. Zeroed experts come out exactly +0 in both, and
+    in the plain version; the rest agree within the tolerances of
+    test_factored_form_matches_pallas_interpret."""
+    bits = 4 if packed else 8
+    rng = np.random.default_rng([E, M, K, N, bits])
+    q = rng.integers(0, 2**bits, (E, K, N)).astype(np.uint8)
+    codes = ((q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8) if packed
+             else q)
+    scale = (np.exp(rng.standard_normal((E, 1, N)) * 0.2) * 0.2
+             / (2**bits - 1)).astype(np.float32)
+    zero = np.round(rng.uniform(0, 2**bits - 1, (E, 1, N))).astype(np.float32)
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    x[0] = 0.0
+    x[0, ::2] = -0.0
+    x[1, :, :K // 2] = 0.0
+    xt = torch.from_numpy(x).to(dtype)
+    ct, st, zt = (torch.from_numpy(a) for a in (codes, scale, zero))
+    p = k12.plan(M, K, N, dtype, packed, E=E)
+    got, skipped = _blocked_batched(xt, ct, st, zt, packed, p)
+    assert skipped >= math.ceil(M / (k12.FP_BM if p.regime == "fp32"
+                                     else k12.TILES[p.kernel][0])) * p.splits
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                               else jnp.float32)
+    want = np.asarray(jdm.dequant_matmul_batched(
+        jx, jnp.asarray(codes), jnp.asarray(scale), jnp.asarray(zero),
+        packed=packed, interpret=True), np.float32)
+    plain = ref.dequant_matmul_batched_ref(xt, ct, st, zt, packed)
+    assert got.dtype == dtype and got.shape == (E, M, N)
+    for out in (got.float().numpy(), want, plain.float().numpy()):
+        assert (out[0] == 0).all() and not np.signbit(out[0]).any()
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=2**-7, atol=1e-6))
     np.testing.assert_allclose(got.float().numpy(), want, **tol)

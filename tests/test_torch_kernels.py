@@ -181,7 +181,9 @@ def test_launch_counters_list_every_kernel():
         "dequant_matmul_w4[decode]", "dequant_matmul_w4[mma]",
         "dequant_matmul_w4[fp32]", "dequant_matmul_w8[decode]",
         "dequant_matmul_w8[mma]", "dequant_matmul_w8[fp32]",
-        "dequant_matmul_batched[packed]", "dequant_matmul_batched[unpacked]"}
+        "dequant_matmul_batched[packed]", "dequant_matmul_batched[unpacked]",
+        "dequant_matmul_batched[decode]", "dequant_matmul_batched[mma]",
+        "dequant_matmul_batched[fp32]"}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
 
@@ -203,3 +205,55 @@ def test_cuda_kernels_match_plain_versions(layout):
     want = _port_matmul(x, qt, a_state, "torch", device="cuda")
     np.testing.assert_allclose(bridge.to_numpy(got), bridge.to_numpy(want),
                                rtol=1e-5, atol=1e-5)
+
+
+K5_CARD = [(regime, rows) for regime in ("decode", "mma", "fp32")
+           for rows in ("dense", "routed", "partial", "zero")]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("regime,rows", K5_CARD,
+                         ids=[f"{r}-{x}" for r, x in K5_CARD])
+def test_cuda_batched_experts_regimes_and_skip(regime, rows):
+    """On a card: K5 in each regime (bf16 M = 4, bf16 M = 40, float32 x)
+    on x whose experts are dense, routed (two experts hold a token, the
+    rest zero), zero over part of K, or all zero; it launches once in the
+    planned regime, agrees with its plain version, and every expert whose
+    rows are all zero gives exactly +0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these kernels "
+                    "on the card")
+    from repro_torch.kernels import dequant_matmul_w4 as k12
+    from repro_torch.kernels import ref
+    E, M, K, N = 6, (40 if regime == "mma" else 4), 578, 200
+    dtype = torch.float32 if regime == "fp32" else torch.bfloat16
+    rng = np.random.default_rng([E, M, K, N])
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    if rows == "routed":
+        x[[0, 2, 3, 5]] = 0.0
+        x[[1, 4], 1:] = 0.0
+    elif rows == "partial":
+        x[1, :, :K // 2] = 0.0
+        x[2] = -0.0
+    elif rows == "zero":
+        x[:] = 0.0
+    codes = rng.integers(0, 256, (E, K // 2, N)).astype(np.uint8)
+    scale = (rng.uniform(0.5, 1.5, (E, 1, N)) * 0.01).astype(np.float32)
+    zero = np.round(rng.uniform(0, 15, (E, 1, N))).astype(np.float32)
+    xt, ct, st, zt = (torch.from_numpy(a).cuda() for a in (x, codes, scale,
+                                                             zero))
+    xt = xt.to(dtype)
+    forms = dict(k12.dequant_matmul_batched.forms)
+    got = k12.dequant_matmul_batched(xt, ct, st, zt, True)
+    want = ref.dequant_matmul_batched_ref(xt, ct, st, zt, True)
+    torch.cuda.synchronize()
+    took = sorted(f for f in forms
+                  if k12.dequant_matmul_batched.forms[f] != forms[f])
+    assert took == sorted([regime, "packed"])
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    empty = ~(xt != 0).flatten(1).any(1)
+    out = got[empty].float().cpu().numpy()
+    assert (out == 0).all() and not np.signbit(out).any()
