@@ -22,8 +22,16 @@ last line is not printed):
               K and misaligned x and codes in both regimes, x in bfloat16
               and float32; each row names the regime the call took. K3
               (qmatmul_int8) at the smollm shapes (M in {4, 64, 512}), the
-              llama4 2-D shapes at M = 512 and ragged; its int32
-              accumulator must be exact.
+              llama4 2-D shapes at M = 512 ((5120, 1024) splits K),
+              ragged (M = 7 and 130, K = 577, N = 200; M = 130, K = 4097,
+              N = 200 in 2 splits), a_q and b_q off 16-byte alignment, and
+              the envelope's edge (M = 64, K = 32768, N = 256, every code
+              -128: acc = 2^29 through every split's partial sums); its
+              int32 accumulator must equal the float64 product exactly,
+              and each row names its K splits. Timed K3
+              rows hold the whole wrapper (ms), the kernel's launch alone
+              (kernel_ms) and the two torch.sum reductions that colsum and
+              rowsum would take outside the kernel (sums_ms).
               K5 (dequant_matmul_batched) at the expert shapes, E = 16,
               M in {4, 40}, (K, N) in {(5120, 8192), (8192, 5120)}, packed
               and unpacked codes, x in bfloat16 and float32, plus a ragged
@@ -266,11 +274,31 @@ def check_dequant(torch, kern, ref, name, M, K, N, dtype, gen, timed,
     return row
 
 
-def check_int8(torch, kern, ref, M, K, N, gen, timed):
-    a_q = torch.randint(-128, 128, (M, K), generator=gen, device=DEV,
-                        dtype=torch.int8)
-    b_q = torch.randint(-128, 128, (K, N), generator=gen, device=DEV,
-                        dtype=torch.int8)
+def check_int8(torch, kern, ref, M, K, N, gen, timed, codes="random",
+               misalign=False):
+    """K3 against its plain version. First with unit scales and zero
+    offsets, where out is float32(acc): the int32 accumulator must equal
+    the float64 product exactly. ``codes="min"`` sets every code of both
+    operands to -128 (acc = 2^14 K, the envelope's edge at K = 32768);
+    ``misalign`` moves a_q and b_q off their 16-byte alignment. The row
+    names the K splits of the call; timed rows hold the whole wrapper
+    (``ms``), the kernel's launch alone (``kernel_ms``) and the two
+    torch.sum reductions the wrapper no longer runs (``sums_ms``)."""
+    if codes == "min":
+        a_q = torch.full((M, K), -128, device=DEV, dtype=torch.int8)
+        b_q = torch.full((K, N), -128, device=DEV, dtype=torch.int8)
+    else:
+        a_q = torch.randint(-128, 128, (M, K), generator=gen, device=DEV,
+                            dtype=torch.int8)
+        b_q = torch.randint(-128, 128, (K, N), generator=gen, device=DEV,
+                            dtype=torch.int8)
+    if misalign:
+        a_q, b_q = _misaligned(torch, a_q), _misaligned(torch, b_q)
+    p = kern.plan(M, K, N, a_ptr=a_q.data_ptr(), b_ptr=b_q.data_ptr())
+    tag = (f"qmatmul_int8 {M}x{K}x{N} codes={codes}"
+           f"{' misaligned' if misalign else ''} splits={p.splits}")
+    if misalign and (p.vec_a or p.vec_b):
+        fail(f"{tag}: misaligned operands planned for 16-byte copies: {p}")
     a_scale = torch.tensor(0.021, device=DEV)
     a_zero = torch.tensor(7.0 - 128.0, device=DEV)
     b_scale = (torch.exp(torch.randn((1, N), generator=gen, device=DEV) * 0.2)
@@ -283,7 +311,7 @@ def check_int8(torch, kern, ref, M, K, N, gen, timed):
     exact = torch.matmul(a_q.double(), b_q.double()).float()
     torch.cuda.synchronize()
     if not torch.equal(acc, exact):
-        fail(f"qmatmul_int8 {M}x{K}x{N}: int32 accumulator is not exact "
+        fail(f"{tag}: int32 accumulator is not exact "
              f"({(acc - exact).abs().max().item()})")
     got = kern.qmatmul_int8(a_q, b_q, a_scale, a_zero, b_scale, b_zero)
     want = ref.qmatmul_int8_ref(a_q, b_q, a_scale, a_zero, b_scale, b_zero)
@@ -297,9 +325,10 @@ def check_int8(torch, kern, ref, M, K, N, gen, timed):
     tol = 16 * 2.0**-24 * (a_scale.double() * b_scale.double()).abs() * terms
     err = (got.double() - want.double()).abs()
     if got.shape != (M, N) or not bool((err <= tol).all()):
-        fail(f"qmatmul_int8 {M}x{K}x{N}: max |err| {err.max().item():.3e} "
-             f"beyond the epilogue rounding bound")
+        fail(f"{tag}: max |err| {err.max().item():.3e} beyond the epilogue "
+             "rounding bound")
     row = {"kernel": "qmatmul_int8", "M": M, "K": K, "N": N, "x": "int8",
+           "codes": codes, "misaligned": misalign, "splits": p.splits,
            "max_abs_err": err.max().item()}
     if timed:
         wbytes = b_q.numel() + 8 * N
@@ -307,6 +336,23 @@ def check_int8(torch, kern, ref, M, K, N, gen, timed):
                 for _ in range(_copies(wbytes))]
         row["ms"] = cuda_ms(torch, kern.qmatmul_int8, sets)
         row["eager_ms"] = eager_ms(torch, kern.qmatmul_int8, sets)
+        a_s, a_z = a_scale.reshape(1), a_zero.reshape(1)
+        bufs = [(torch.empty((M, N), device=DEV),
+                 torch.empty((p.workspace_bytes // 4,), dtype=torch.int32,
+                             device=DEV) if p.splits > 1 else None)
+                for _ in sets]
+
+        def launch_only(a, b, out, ws):
+            kern.launch(p, a, b, a_s, a_z, b_scale, b_zero, out, ws)
+
+        row["kernel_ms"] = cuda_ms(torch, launch_only, [
+            (s[0], s[1]) + o for s, o in zip(sets, bufs)])
+
+        def sums(a, b):  # colsum and rowsum as two reductions
+            torch.sum(b, dim=0, keepdim=True, dtype=torch.int32)
+            torch.sum(a, dim=1, keepdim=True, dtype=torch.int32)
+
+        row["sums_ms"] = cuda_ms(torch, sums, [(s[0], s[1]) for s in sets])
         row["plain_ms"] = cuda_ms(torch, ref.qmatmul_int8_ref, sets)
         if M > 16 and K % 8 == 0 and N % 8 == 0:
             row["library_ms"] = cuda_ms(torch, torch._int_mm,
@@ -315,7 +361,7 @@ def check_int8(torch, kern, ref, M, K, N, gen, timed):
             row["library_ms"] = None  # torch._int_mm needs M > 16
         nbytes = a_q.numel() + wbytes + 8 + 4 * M * N
         row["bound_ms"], row["bound_by"] = bound(M, K, N, "int8", nbytes)
-        del sets
+        del sets, bufs
     return row
 
 
@@ -508,6 +554,9 @@ def _log_rows(rows):
                         f"({r['active_experts']})" if "packed" in r else "")
                      + (f" {r['regime']:6s} tile={r['tile']} "
                         f"splits={r['splits']:2d}" if "regime" in r else ""))
+        if r["kernel"] == "qmatmul_int8":
+            shape += (f" splits={r['splits']:2d} kernel_ms={r['kernel_ms']:.5f}"
+                      f" sums_ms={r['sums_ms']:.5f}")
         active = (f" library_active_ms={r['library_active_ms']}"
                   if "library_active_ms" in r else "")
         log(f"  {r['kernel']:22s} {shape} ms={r['ms']:.5f} "
@@ -551,7 +600,15 @@ def kernels_phase(torch):
             for name in k12_names:
                 rows.append(check_dequant(torch, k12, ref, name, M, 576, 1536,
                                           dtype, gen, False, misalign=True))
-    rows.append(check_int8(torch, k3, ref, 7, 577, 200, gen, timed=False))
+    # K3: ragged M, N and K (one and two row tiles), a_q and b_q off 16
+    # bytes, and the envelope's edge: K = 32768 with every code -128, so
+    # acc = 2^29 through every split's int32 partial sums
+    for M, K in ((7, 577), (130, 577), (130, 4097)):  # the last splits K
+        rows.append(check_int8(torch, k3, ref, M, K, 200, gen, timed=False))
+    rows.append(check_int8(torch, k3, ref, 512, 576, 1536, gen, timed=False,
+                           misalign=True))
+    rows.append(check_int8(torch, k3, ref, 64, k3.K_MAX, 256, gen,
+                           timed=False, codes="min"))
     # llama4-scout's 2-D sites: decode, prefill and export
     for M in (4, 16, 512):
         for K, N in LLAMA4_2D:
@@ -1101,6 +1158,9 @@ def main() -> int:
             "library_ms": timed["library_ms"],
             "shape": shape, "launches_by_path": by_path,
         })
+        if "kernel_ms" in timed:
+            summary[-1].update(kernel_ms=timed["kernel_ms"],
+                               splits=timed["splits"])
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": summary, "rows": rows, "path": path,

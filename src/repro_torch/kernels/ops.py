@@ -123,6 +123,12 @@ def _static_act_quant(x2, a_state):
     return (a_scale * (_snap_codes(x2, a_scale, a_zero) - a_zero)).to(x2.dtype)
 
 
+def recentre_codes(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 weight codes u in [0, 255] as the int8 u - 128, in one pass of
+    one byte per code: the byte of u - 128 is u ^ 0x80."""
+    return codes.view(torch.int8) ^ -128
+
+
 def _matmul_2d(x2, qt: QTensor, a_state, backend: str):
     global last_kernel
     N = qt.shape[-1]
@@ -144,7 +150,7 @@ def _matmul_2d(x2, qt: QTensor, a_state, backend: str):
         # affine zero offsets become exact rank-1 corrections
         a_scale, a_zero = a_state
         a_q = _lsq_int8_codes(x2, a_scale, a_zero)
-        b_q = (codes.to(torch.int32) - 128).to(torch.int8)
+        b_q = recentre_codes(codes)
         b_zero = zero - 128.0
         last_kernel = "qmatmul_int8_ref" if plain else "qmatmul_int8"
         if plain:

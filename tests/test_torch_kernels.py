@@ -137,6 +137,31 @@ def test_snapped_activation_codes_bit_exact():
     assert got.min() == -128 and got.max() == 127
 
 
+def test_recentred_codes_equal_the_int32_form():
+    """W8A8's weight codes u in [0, 255] become int8 u - 128 in one byte-wide
+    pass (u ^ 0x80); over all 256 codes that is the int32 form it replaced,
+    (u - 128) cast to int8."""
+    u = torch.arange(256, dtype=torch.uint8)
+    got = ops.recentre_codes(u)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, (u.to(torch.int32) - 128).to(torch.int8))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 256, 16), (33, 48, 24)])
+def test_w8a8_over_every_code_matches_reference(m, k, n):
+    """qtensor_matmul on the w8a8 layout with weight codes that take all 256
+    values matches the reference dispatcher bit for bit."""
+    x, qt, a_state = _example("w8a8", m, k, n)
+    codes = (np.arange(k * n) * 97 % 256).astype(np.uint8).reshape(k, n)
+    assert len(np.unique(codes)) == 256
+    qt = JQTensor(codes=jnp.asarray(codes), scale=qt.scale, zero=qt.zero,
+                  shape=qt.shape, bits=8, packed=False, dtype="float32",
+                  pack_axis=0)
+    want = _ref_jit(x, qt, a_state)
+    _check("w8a8", _port_matmul(x, qt, a_state, "auto"), want)
+    assert ops.last_kernel == "qmatmul_int8_ref"
+
+
 def test_kernel_backend_refuses_cpu_tensors():
     """No CPU fallback hides behind the kernel backend."""
     x, qt, a_state = _example("w4_packed", 5, 16, 8)
@@ -257,3 +282,57 @@ def test_cuda_batched_experts_regimes_and_skip(regime, rows):
     empty = ~(xt != 0).flatten(1).any(1)
     out = got[empty].float().cpu().numpy()
     assert (out == 0).all() and not np.signbit(out).any()
+
+
+K3_CARD = [(7, 577, 200), (130, 577, 200), (130, 4097, 200), (512, 5120, 1024),
+           (64, 32768, 256)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M,K,N", K3_CARD,
+                         ids=[f"m{M}k{K}n{N}" for M, K, N in K3_CARD])
+def test_cuda_qmatmul_int8_ragged_and_split(M, K, N):
+    """On a card: K3 at ragged shapes (one and two row tiles), with K split
+    (the last block of a tile adds the int32 partial sums), and at the
+    envelope's edge (K = 32768, every code -128, acc = 2^29): the int32
+    accumulator equals the float64 product exactly, and the epilogue
+    agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these kernels "
+                    "on the card")
+    from repro_torch.kernels import qmatmul_int8 as k3
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng([M, K, N])
+    if K == k3.K_MAX:
+        a = np.full((M, K), -128, np.int8)
+        b = np.full((K, N), -128, np.int8)
+    else:
+        a = rng.integers(-128, 128, (M, K)).astype(np.int8)
+        b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    a_q, b_q = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    assert (k3.plan(M, K, N).splits > 1) == (K >= 4097)
+    ones, nil = torch.ones((1, N), device="cuda"), torch.zeros((1, N),
+                                                               device="cuda")
+    before = k3.qmatmul_int8.launches
+    acc = k3.qmatmul_int8(a_q, b_q, 1.0, 0.0, ones, nil)
+    torch.cuda.synchronize()
+    assert k3.qmatmul_int8.launches == before + 1
+    exact = torch.matmul(a_q.double(), b_q.double()).float()
+    assert torch.equal(acc, exact)
+    b_s = torch.from_numpy((np.exp(rng.standard_normal((1, N)) * 0.2) * 0.2
+                            / 255).astype(np.float32)).cuda()
+    b_z = torch.from_numpy((np.round(rng.uniform(0, 255, (1, N))) - 128
+                            ).astype(np.float32)).cuda()
+    a_s, a_z = 0.021, -121.0
+    got = k3.qmatmul_int8(a_q, b_q, a_s, a_z, b_s, b_z)
+    want = ref.qmatmul_int8_ref(a_q, b_q, torch.tensor(a_s, device="cuda"),
+                                torch.tensor(a_z, device="cuda"), b_s, b_z)
+    # the kernel's epilogue associates as the Pallas kernel, the plain
+    # version as ref.py: each rounds ~5 times at the size of its largest
+    # term (the bound chip_smoke.py states)
+    terms = (exact.double().abs()
+             + (a_z * b_q.double().sum(0, keepdim=True)).abs()
+             + (a_q.double().sum(1, keepdim=True) * b_z.double()).abs()
+             + (K * a_z * b_z.double()).abs())
+    tol = 16 * 2.0**-24 * (a_s * b_s.double()).abs() * terms
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
