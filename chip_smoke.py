@@ -58,6 +58,18 @@ last line is not printed):
               the decode steps, mma from prefill or the export). One
               request is re-run with the plain versions
               (backend "torch") and must agree within bfloat16 tolerance.
+   Trained  — the same model and weights, FlexRound with its Adam loop:
+              the launcher's defaults (setting qdrop, lr 3e-3, minibatches
+              of 8) but TRAIN_ITERS = 100 iterations (not 200, to keep the
+              phase near a minute) on 64 x 64 calibration tokens, the same
+              recipe; then serving on the trained QTensors. Counters
+              zeroed just before, read just after: the reconstruction's
+              deploy forwards must launch K1 and K3, serving K1 and K2.
+              Reports seconds and steps/s per block and in total and
+              err_before/err_after per block; fails on a non-finite error,
+              or unless the errors' sum after training is below both its
+              own sum before and the export-only run's sum. Request 0 is
+              re-run with the plain versions (5e-2 relative L2).
 5. MoE path — llama4-scout-17b-a16e at full width (d_model 5120, 16
               experts, top-1, shared expert, vocab 202048) and 4 of its 48
               layers, bfloat16, weights from torch.Generator seed 0:
@@ -108,6 +120,10 @@ LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 LLAMA4_EXPERTS = ((5120, 8192), (8192, 5120))
 LLAMA4_E = 16
 LLAMA4_LAYERS = 4  # of 48: the bf16 weights of 4 layers take 21.8 GB
+# the launcher's default is 200 (repro/launch/quantize.py); 200 took 126 s
+# on an H100 (eager steps, host-bound, PERF.md), past the ~120 s this
+# phase may take, so the run takes 100
+TRAIN_ITERS = 100
 # the shape each kernel's summary line reports: (M, K, N, x) of a matmul;
 # for K4 (M, N, w) of the weight
 TIMED = {
@@ -754,8 +770,8 @@ def run_engine(torch, np, model, qparams, ctx):
 
 
 def export(torch, model, params, calib, recipe, w8_layers):
-    """Export-only FlexRound PTQ; returns (finalized layers, astates,
-    seconds, per-block errors)."""
+    """FlexRound PTQ (export-only when ``recipe.iters`` is 0); returns
+    (finalized layers, astates, seconds, per-block errors, reports)."""
     from repro_torch.core.reconstruct import quantize_blocks
     t0 = time.perf_counter()
     x0, blocks, _ = model.quant_blocks(params, calib)
@@ -773,7 +789,7 @@ def export(torch, model, params, calib, recipe, w8_layers):
     log(f"export: {len(reports)} blocks in {export_s:.2f}s")
     log("export err_before/err_after per block: "
         + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
-    return fin, astates, export_s, errs
+    return fin, astates, export_s, errs, reports
 
 
 REGIMES = tuple(f"{k}[{r}]" for k in ("dequant_matmul_w4", "dequant_matmul_w8")
@@ -851,8 +867,8 @@ def path_phase(torch, np):
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()  # the main path's run starts here
-    fin, astates, export_s, errs = export(torch, model, params, calib, recipe,
-                                          [0, 29])
+    fin, astates, export_s, errs, _ = export(torch, model, params, calib,
+                                             recipe, [0, 29])
     export_counts = ops.launch_counts()
     log(f"export launches {export_counts}")
     if export_counts["dequant_matmul_w4"] == 0 or export_counts["qmatmul_int8"] == 0:
@@ -885,7 +901,82 @@ def path_phase(torch, np):
     rc.pop("routes")
     return counts, dict(stats, export_s=export_s, max_memory_allocated=peak,
                         err=errs, export_launches=export_counts,
-                        serve_launches=serve_counts, recheck=rc)
+                        serve_launches=serve_counts, recheck=rc), (model, params)
+
+
+def trained_phase(torch, np, model, params, export_only_errs):
+    """smollm-135m with FlexRound's Adam loop at the launcher's defaults
+    (``repro/launch/quantize.py``: setting qdrop, lr 3e-3, minibatches of
+    8, 64 calibration sequences of 64 tokens) but ``TRAIN_ITERS``
+    iterations, the path's recipe; then serving on the trained QTensors."""
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.core.quant_config import QuantRecipe
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    calib = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (64, 64)), device=DEV)
+    recipe = QuantRecipe(method="flexround", setting="qdrop", w_bits=4,
+                         a_bits=8, w_granularity="per_channel",
+                         iters=TRAIN_ITERS, lr=3e-3, batch_size=8,
+                         rules=("layers.0.*:w_bits=8", "layers.29.*:w_bits=8"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the trained path's run starts here
+    fin, astates, export_s, errs, reports = export(
+        torch, model, params, calib, recipe, [0, 29])
+    export_counts = ops.launch_counts()
+    recon_peak = torch.cuda.max_memory_allocated()
+    steps = sum(r.iters for r in reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in reports)
+    log(f"trained: {steps} steps in {export_s:.2f}s ({loop_s:.2f}s in the "
+        f"Adam loops, {steps / loop_s:.1f} steps/s), peak {recon_peak} B")
+    log("trained seconds/steps_per_s per block: " + " ".join(
+        f"{r.seconds:.3f}/{r.steps_per_s:.1f}" for r in reports))
+    log(f"trained export launches {export_counts}")
+    if export_counts["dequant_matmul_w4"] == 0 or export_counts["qmatmul_int8"] == 0:
+        fail(f"trained export did not launch K1 and K3: {export_counts}")
+    before = sum(a for a, _ in errs)
+    after = sum(b for _, b in errs)
+    baseline = sum(b for _, b in export_only_errs)
+    log(f"trained: sum of err_before {before:.6e}, sum of err_after "
+        f"{after:.6e}; export-only sum of err_after {baseline:.6e}")
+    if not all(math.isfinite(a) and math.isfinite(b) for a, b in errs) or not (
+            after < before and after < baseline):
+        fail("training did not lower the reconstruction error below its own "
+             "start and the export-only run's")
+
+    qparams = dict(params, layers=list(fin))
+    ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
+    requests, outs, stats = run_engine(torch, np, model, qparams, ctx)
+    counts = ops.launch_counts()  # the trained path's run ends here
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    log(f"trained serve launches {serve_counts}")
+    if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
+        fail(f"serving the trained weights did not launch K1 and K2: "
+             f"{serve_counts}")
+    rc = recheck_request0(torch, model, qparams, recipe, astates, requests,
+                          outs)
+    rc.pop("routes")
+    log(f"trained: torch backend re-run of request 0: logits relative L2 "
+        f"diff {rc['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
+        f"{rc['max_abs_diff']:.4e}; greedy tokens {rc['greedy_agree']}/"
+        f"{rc['n_tokens']} identical")
+    if not math.isfinite(rc["rel_l2"]) or rc["rel_l2"] > 5e-2 or not rc["ties_ok"]:
+        fail("trained: kernel and plain-version serving disagree beyond bf16 "
+             "tolerance")
+    return counts, dict(
+        stats, recipe={"setting": recipe.setting, "iters": recipe.iters,
+                       "lr": recipe.lr, "batch_size": recipe.batch_size,
+                       "calib": list(calib.shape)},
+        export_s=export_s, loop_s=loop_s, steps=steps,
+        steps_per_s=steps / loop_s, recon_peak_bytes=recon_peak,
+        err=errs, err_before_sum=before, err_after_sum=after,
+        export_only_err_after_sum=baseline,
+        blocks=[{"name": r.name, "seconds": r.seconds,
+                 "steps_per_s": r.steps_per_s, "err_before": r.err_before,
+                 "err_after": r.err_after} for r in reports],
+        export_launches=export_counts, serve_launches=serve_counts,
+        recheck=rc)
 
 
 # ----------------------------------------------------------------- MoE path
@@ -1015,8 +1106,8 @@ def moe_path_phase(torch, np):
     k4_counts = k4_entry_phase(torch, model, params, calib, recipe)
 
     ops.reset_launch_counts()  # the MoE main path's run starts here
-    fin, astates, export_s, errs = export(torch, model, params, calib, recipe,
-                                          [0, last])
+    fin, astates, export_s, errs, _ = export(torch, model, params, calib,
+                                             recipe, [0, last])
     export_counts = ops.launch_counts()
     log(f"export launches {export_counts}")
     qparams = dict(params, layers=list(fin))
@@ -1125,8 +1216,12 @@ def main() -> int:
     rows = kernels_phase(torch)
     log(f"kernels phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts, path = path_phase(torch, np)
+    counts, path, smollm = path_phase(torch, np)
     log(f"smollm path phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    trained_counts, trained = trained_phase(torch, np, *smollm, path["err"])
+    log(f"smollm trained phase: {time.perf_counter() - t0:.1f}s")
+    del smollm
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1138,6 +1233,7 @@ def main() -> int:
         timed = _timed_row(rows, name)
         src, replaces = SOURCES[name]
         by_path = {"smollm-135m": counts[name],
+                   "smollm-135m-trained": trained_counts[name],
                    "llama4-scout-17b-a16e": moe_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
@@ -1164,7 +1260,7 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
-         "moe_path": moe_path}, indent=1))
+         "trained_path": trained, "moe_path": moe_path}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

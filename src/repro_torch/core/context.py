@@ -6,11 +6,17 @@ Every linear in the model routes through ``ctx.linear``. Depending on
 
   fp       plain full-precision math (the teacher stream, fp serving)
   calib    record activation ranges per site (LSQ init)
+  capture  record each site's inputs (layer-wise reconstruction)
   recon    weights fake-quantized through their rounding states, activations
-           LSQ-fake-quantized; forward only here, without QDrop (what the
-           reconstruction error ``err_before``/``err_after`` reads)
+           LSQ-fake-quantized, plus QDrop's random dropping when the recipe's
+           setting is ``qdrop``, ``drop_enabled`` holds and ``key`` is set
   deploy   weights are QTensor leaves; every QTensor matmul dispatches
            through ``kernels/ops.qtensor_matmul`` under ``backend``
+
+``key`` is the step's QDrop source, a callable from a site name to that
+site's draw: a ``torch.Generator`` (``qdrop.SiteStreams``: one stream per
+site, keyed by the crc32 salt of its name, as the reference folds the salt
+into its step key) or a boolean mask drawn elsewhere.
 
 Deploy backend policy (``kernels.ops.resolve_backend``): ``auto`` runs the
 CUDA kernels for CUDA tensors and the plain versions for CPU tensors;
@@ -25,15 +31,15 @@ port mirrors it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import lsq
+from repro_torch.core import lsq, qdrop
 from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
 
-MODES = ("fp", "calib", "recon", "deploy")
+MODES = ("fp", "calib", "capture", "recon", "deploy")
 
 
 @dataclasses.dataclass
@@ -42,17 +48,24 @@ class QuantCtx:
     recipe: Optional[QuantRecipe] = None
     wstates: Dict[str, Any] = dataclasses.field(default_factory=dict)
     astates: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    # calib mode: site -> (lo, hi) activation range seen so far
+    # the step's QDrop source: site name -> torch.Generator or boolean mask
+    key: Optional[Callable[[str], qdrop.MaskOrGenerator]] = None
+    drop_enabled: bool = True
+    # calib mode: site -> (lo, hi) activation range seen so far;
+    # capture mode: site -> [inputs]
     records: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # kernel backend for deploy mode: "auto" | "kernel" | "torch"
     backend: str = "auto"
+    # pre-resolved per-site plans; names missing here fall back to the recipe
+    plans: Optional[Dict[str, SitePlan]] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
-            raise ValueError(f"mode {self.mode!r} not in {MODES} (capture and "
-                             "QDrop are queued in ROADMAP)")
+            raise ValueError(f"mode {self.mode!r} not in {MODES}")
 
     def _plan(self, name: str, batch_dims: int = 0) -> Optional[SitePlan]:
+        if self.plans is not None and name in self.plans:
+            return self.plans[name]
         if self.recipe is None:
             return None
         return self.recipe.resolve(name, batch_dims=batch_dims)
@@ -72,7 +85,11 @@ class QuantCtx:
         plan = self._plan(name)
         if plan is None or plan.act is None or name not in self.astates:
             return x
-        return lsq.apply(x, self.astates[name], plan.act)
+        x_hat = lsq.apply(x, self.astates[name], plan.act)
+        if (self.mode == "recon" and self.recipe.setting == "qdrop"
+                and self.drop_enabled and self.key is not None):
+            return qdrop.qdrop(x, x_hat, self.recipe.drop_prob, self.key(name))
+        return x_hat
 
     def _weight(self, name: str, w: Any, batch_dims: int) -> torch.Tensor:
         if isinstance(w, QTensor):
@@ -100,6 +117,10 @@ class QuantCtx:
         return kops.qtensor_matmul(x, qt, a_state=a_state,
                                    backend=self.backend)
 
+    def get_weight(self, name: str, w: Any, batch_dims: int = 0) -> torch.Tensor:
+        """Effective (fake-quant / dequantized) weight for custom einsums."""
+        return self._weight(name, w, batch_dims)
+
     def linear(self, name: str, x: torch.Tensor, w: Any,
                b: Optional[torch.Tensor] = None,
                batch_dims: int = 0) -> torch.Tensor:
@@ -108,6 +129,8 @@ class QuantCtx:
         w: (d_in, d_out), or (E, d_in, d_out) with batch_dims=1: then x has
         shape (..., E, N, d_in) and the contraction is a per-expert matmul.
         """
+        if self.mode == "capture":
+            self.records.setdefault(name, []).append(x)
         if (self.mode == "deploy" and isinstance(w, QTensor)
                 and batch_dims in (0, 1)):
             y = self._deploy_matmul(name, x, w, batch_dims)

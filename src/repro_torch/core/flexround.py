@@ -65,7 +65,7 @@ def codes(w: torch.Tensor, state: Dict[str, torch.Tensor], qcfg: QuantConfig,
     """Float integer codes (incl. zero offset), clipped to the grid."""
     rnd = qz.ste_round if ste else torch.round
     q = rnd(w.float() / divisor(state)) + state["zero"]
-    return torch.clamp(q, qcfg.qmin, qcfg.qmax)
+    return qz.clip(q, qcfg.qmin, qcfg.qmax)
 
 
 def apply(w: torch.Tensor, state: Dict[str, torch.Tensor],

@@ -40,7 +40,7 @@ def apply(x: torch.Tensor, state: Dict[str, torch.Tensor],
                                             dtype=torch.float32) * qcfg.qmax))
     s = qz.grad_scale(state["step"], g)
     b = qz.grad_scale(state["beta"], g)
-    q = torch.clamp(qz.ste_round((x.float() - b) / s), qcfg.qmin, qcfg.qmax)
+    q = qz.clip(qz.ste_round((x.float() - b) / s), qcfg.qmin, qcfg.qmax)
     return (s * q + b).to(x.dtype)
 
 

@@ -13,9 +13,9 @@ QuantConfig):
     export(w, state, qcfg, dtype=...) -> QTensor  hard integer export
 
 Registering a method makes it valid for ``QuantRecipe`` validation and
-per-site rule resolution at once. The port registers ``flexround`` (weights)
-and ``lsq`` (activations); the reference's other methods are queued in
-ROADMAP.
+per-site rule resolution at once. The port registers the reference's
+built-ins: ``adaquant``, ``adaround``, ``flexround`` and ``rtn`` (weights)
+and ``lsq`` (activations).
 """
 from __future__ import annotations
 
@@ -63,7 +63,8 @@ def _ensure_builtins() -> None:
         return
     _BUILTINS_LOADED = True
     try:
-        from repro_torch.core import flexround, lsq  # noqa: F401
+        from repro_torch.core import (adaquant, adaround, flexround,  # noqa: F401
+                                      lsq, rtn)
     except BaseException:
         _BUILTINS_LOADED = False  # retry next call instead of caching a
         raise                     # partial registry behind an empty error

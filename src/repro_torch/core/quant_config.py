@@ -159,6 +159,11 @@ class SitePlan:
                                 if self.act is not None else None),
                 "lr": self.lr}
 
+    def cache_key(self) -> Tuple:
+        """Hashable, site-name-independent summary of the resolved plan: two
+        sites with equal keys quantize identically up to their weights."""
+        return (self.method.name, self.weight, self.act, self.lr)
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantRecipe:
@@ -182,6 +187,12 @@ class QuantRecipe:
     batch_size: int = 8
     drop_prob: float = 0.5  # QDrop: probability of *dropping* activation quant
     seed: int = 0
+
+    # AdaRound regularizer schedule (Nagel et al. 2020 defaults)
+    ada_lambda: float = 0.01
+    ada_beta_start: float = 20.0
+    ada_beta_end: float = 2.0
+    ada_warmup: float = 0.2
 
     # Ordered per-site overrides; later matches win. Entries may be SiteRule
     # objects or "glob:key=value[,...]" strings (parsed on construction).
@@ -213,12 +224,29 @@ class QuantRecipe:
             batch_dims = getattr(site, "batch_dims", batch_dims)
         return _resolve_cached(self, site_name, batch_dims)
 
+    def with_rules(self, *extra) -> "QuantRecipe":
+        """New recipe with ``extra`` rules appended (later rules win)."""
+        return dataclasses.replace(self, rules=self.rules + tuple(extra))
+
     def overrides_for(self, site_name: str) -> Mapping[str, Any]:
         out: dict = {}
         for rule in self.rules:
             if rule.matches(site_name):
                 out.update(rule.overrides)
         return out
+
+    def weight_qconfig(self) -> QuantConfig:
+        """Recipe-default weight quantizer (no per-site rules applied)."""
+        return QuantConfig(bits=self.w_bits, symmetric=self.w_symmetric,
+                           granularity=self.w_granularity,
+                           observer=self.w_observer)
+
+    def act_qconfig(self) -> Optional[QuantConfig]:
+        """Recipe-default activation quantizer (see ``weight_qconfig``)."""
+        if self.a_bits is None:
+            return None
+        return QuantConfig(bits=self.a_bits, symmetric=self.a_symmetric,
+                           granularity="per_tensor", observer="minmax")
 
 
 @functools.lru_cache(maxsize=8192)

@@ -7,6 +7,12 @@
   except the channel axis. All quant math runs in float32; fake-quant
   returns the input dtype. ``torch.round`` rounds half to even, as
   ``jnp.round`` does.
+- Every clip that a gradient passes through is ``clip`` below, not
+  ``torch.clamp``: at an exact tie (x == lo or x == hi) ``jnp.clip`` passes
+  half the gradient, because ``lax.max`` and ``lax.min`` split ties, while
+  ``torch.clamp`` passes all of it. Observer grids put each channel's
+  extremes exactly on qmin/qmax and STE-rounded codes are integers, so
+  ties are common.
 """
 from __future__ import annotations
 
@@ -20,6 +26,29 @@ from repro_torch.core.quant_config import QuantConfig
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """Round half to even with identity gradient (straight-through)."""
     return x + (torch.round(x) - x).detach()
+
+
+class _Clip(torch.autograd.Function):
+    """``torch.clamp`` forward; the gradient of ``jnp.clip``, i.e. of
+    ``minimum(maximum(x, lo), hi)``: 1 inside, 1/2 at a bound, 0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = (x > ctx.lo) & (x < ctx.hi)
+        tie = (x == ctx.lo) | (x == ctx.hi)
+        return torch.where(inside, g, torch.where(tie, g * 0.5, 0.0)), None, None
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Clip to [lo, hi] (python numbers) with JAX's tie gradient."""
+    return _Clip.apply(x, lo, hi)
 
 
 def grad_scale(x: torch.Tensor, g) -> torch.Tensor:
@@ -41,7 +70,7 @@ def quantize(w: torch.Tensor, scale, zero, qcfg: QuantConfig,
     """Float integer codes in [qmin, qmax]; differentiable via STE if asked."""
     rnd = ste_round if ste else torch.round
     q = rnd(w.float() / scale) + zero
-    return torch.clamp(q, qcfg.qmin, qcfg.qmax)
+    return clip(q, qcfg.qmin, qcfg.qmax)
 
 
 def dequantize(q: torch.Tensor, scale, zero) -> torch.Tensor:

@@ -23,7 +23,10 @@ print(' '.join(mods))
 """
 
 NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
-               "repro_torch.configs.llama4_scout_17b_a16e")
+               "repro_torch.configs.llama4_scout_17b_a16e",
+               "repro_torch.core.rtn", "repro_torch.core.adaround",
+               "repro_torch.core.adaquant", "repro_torch.core.qdrop",
+               "repro_torch.optim", "repro_torch.optim.adam")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():

@@ -247,4 +247,4 @@ def test_rule_errors():
     with pytest.raises(ValueError, match="unknown recipe fields"):
         SiteRule.parse("layers.0.*:bogus=1")
     with pytest.raises(ValueError, match="not registered"):
-        QuantRecipe(method="rtn")
+        QuantRecipe(method="bogus")

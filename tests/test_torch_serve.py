@@ -62,7 +62,8 @@ def slice_run():
     fin, ast, reps = quantize_blocks(blocks, recipe, x0)
     return dict(cfg=cfg, jmodel=jmodel, model=model, jrecipe=jrecipe,
                 recipe=recipe, jfin=jfin, jast=jast, jreps=jreps, fin=fin,
-                ast=ast, reps=reps, jq=jassemble(jfin), q=assemble(fin))
+                ast=ast, reps=reps, jq=jassemble(jfin), q=assemble(fin),
+                params=params, calib=calib)
 
 
 def _qtensors(tree, prefix=""):
@@ -110,11 +111,18 @@ def test_astates_and_errors_agree(slice_run):
 
 
 def test_iters_above_zero_not_ported(slice_run):
+    """The Adam loop is ported now: ``iters > 0`` runs (it used to raise)
+    and reports one loss and one MSE per step for every block."""
     model = slice_run["model"]
-    x0, blocks, _ = model.quant_blocks(slice_run["q"] | {"layers": []},
-                                       torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_blocks(blocks, QuantRecipe(iters=1), x0)
+    x0, blocks, _ = model.quant_blocks(slice_run["params"],
+                                       torch.from_numpy(slice_run["calib"]))
+    recipe = QuantRecipe(rules=RULES, **dict(RECIPE_KW, iters=2))
+    fin, _, reps = quantize_blocks(blocks, recipe, x0)
+    assert len(fin) == len(reps) == len(blocks)
+    for rep in reps:
+        assert rep.iters == 2 and rep.loss_curve.shape == (2,)
+        assert np.isfinite(rep.loss_curve).all()
+        assert np.isfinite([rep.err_before, rep.err_after]).all()
 
 
 def _serve(engine, requests):
