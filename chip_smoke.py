@@ -58,18 +58,31 @@ last line is not printed):
               the decode steps, mma from prefill or the export). One
               request is re-run with the plain versions
               (backend "torch") and must agree within bfloat16 tolerance.
-   Trained  — the same model and weights, FlexRound with its Adam loop:
-              the launcher's defaults (setting qdrop, lr 3e-3, minibatches
-              of 8) but TRAIN_ITERS = 100 iterations (not 200, to keep the
-              phase near a minute) on 64 x 64 calibration tokens, the same
-              recipe; then serving on the trained QTensors. Counters
-              zeroed just before, read just after: the reconstruction's
-              deploy forwards must launch K1 and K3, serving K1 and K2.
-              Reports seconds and steps/s per block and in total and
-              err_before/err_after per block; fails on a non-finite error,
-              or unless the errors' sum after training is below both its
-              own sum before and the export-only run's sum. Request 0 is
-              re-run with the plain versions (5e-2 relative L2).
+   Trained  — the same model and weights through the PTQ launcher, in
+              process: ``repro_torch.launch.quantize.main`` with the path's
+              recipe (W4 body, W8 layers 0 and 29, A8, per-channel), setting
+              qdrop, lr 3e-3, 64 x 64 calibration tokens from the launcher's
+              SyntheticTokens, minibatches of min(16, calib) = 16 (the
+              launcher's), TRAIN_ITERS = 100 iterations (not the default
+              200, to keep the phase near a minute), per-block checkpoints
+              (--resume-dir), the export (--out) and the scheduler's serve
+              run (--serve: 8 requests x 16 new tokens, 4 slots, int8 KV).
+              Counters zeroed just before the call, read where the export
+              hands over to serving (the launcher's serve_engine_run is
+              wrapped) and just after: the reconstruction's deploy forwards
+              must launch K1 and K3, serving K1 and K2. Reports the
+              launcher's seconds, seconds and steps/s per block and in
+              total, err_before/err_after per block; fails on a non-finite
+              error, or unless the errors' sum after training is below both
+              its own sum before and the export-only run's sum. Request 0
+              is re-run with the plain versions (5e-2 relative L2).
+   Preempt  — the same recipe at PREEMPT_ITERS = 10 iterations: a launcher
+              run without a break (export A); the same command in a
+              subprocess with --resume-dir D, sent SIGKILL once D's
+              checkpoint records next_block >= PREEMPT_AT = 10; the same
+              command in process, resuming from D (export B). Every tensor
+              of B must equal A's bit for bit, and every block's err_before
+              and err_after; reports the seconds of the three runs.
 5. MoE path — llama4-scout-17b-a16e at full width (d_model 5120, 16
               experts, top-1, shared expert, vocab 202048) and 4 of its 48
               layers, bfloat16, weights from torch.Generator seed 0:
@@ -97,6 +110,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -124,6 +138,12 @@ LLAMA4_LAYERS = 4  # of 48: the bf16 weights of 4 layers take 21.8 GB
 # on an H100 (eager steps, host-bound, PERF.md), past the ~120 s this
 # phase may take, so the run takes 100
 TRAIN_ITERS = 100
+# the preemption phase: iterations per block, and the block after whose
+# checkpoint the launcher subprocess is killed
+PREEMPT_ITERS = 10
+PREEMPT_AT = 10
+# checkpoints and exports of the launcher phases (under build/, gitignored)
+RUNS_DIR = ROOT / "build" / "chip_smoke_runs"
 # the shape each kernel's summary line reports: (M, K, N, x) of a matmul;
 # for K4 (M, N, w) of the weight
 TIMED = {
@@ -901,35 +921,72 @@ def path_phase(torch, np):
     rc.pop("routes")
     return counts, dict(stats, export_s=export_s, max_memory_allocated=peak,
                         err=errs, export_launches=export_counts,
-                        serve_launches=serve_counts, recheck=rc), (model, params)
+                        serve_launches=serve_counts, recheck=rc)
 
 
-def trained_phase(torch, np, model, params, export_only_errs):
-    """smollm-135m with FlexRound's Adam loop at the launcher's defaults
-    (``repro/launch/quantize.py``: setting qdrop, lr 3e-3, minibatches of
-    8, 64 calibration sequences of 64 tokens) but ``TRAIN_ITERS``
-    iterations, the path's recipe; then serving on the trained QTensors."""
-    from repro_torch.core.context import QuantCtx
-    from repro_torch.core.quant_config import QuantRecipe
+def launcher_argv(iters: int):
+    """The launcher's recipe for the trained and preemption phases:
+    smollm-135m at full width and depth, W4 body, W8 layers 0 and 29, A8,
+    QDrop, 64 x 64 calibration tokens (``--calib``/``--seq`` defaults), the
+    launcher's lr 3e-3 and minibatches of min(16, calib) = 16."""
+    return ["--arch", "smollm-135m", "--w-bits", "4", "--a-bits", "8",
+            "--rule", "layers.0.*:w_bits=8", "--rule", "layers.29.*:w_bits=8",
+            "--setting", "qdrop", "--iters", str(iters), "--calib", "64",
+            "--seq", "64"]
+
+
+def trained_phase(torch, np, export_only_errs):
+    """smollm-135m through the PTQ launcher, in process:
+    ``repro_torch.launch.quantize.main`` with ``launcher_argv(TRAIN_ITERS)``,
+    per-block checkpoints (``--resume-dir``), the export (``--out``) and the
+    scheduler's serve run (``--serve``: 8 requests x 16 new tokens on 4
+    slots, int8 KV). The launch counters are zeroed before the call; the
+    launcher's ``serve_engine_run`` is wrapped to read them where the export
+    ends and serving begins."""
     from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as launcher
 
-    cfg = model.cfg
-    calib = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab, (64, 64)), device=DEV)
-    recipe = QuantRecipe(method="flexround", setting="qdrop", w_bits=4,
-                         a_bits=8, w_granularity="per_channel",
-                         iters=TRAIN_ITERS, lr=3e-3, batch_size=8,
-                         rules=("layers.0.*:w_bits=8", "layers.29.*:w_bits=8"))
+    marks = {}
+    real_serve = launcher.serve_engine_run
+
+    def serve_engine_run(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["export"] = ops.launch_counts()
+        marks["export_s"] = time.perf_counter() - t0
+        return real_serve(*args, **kwargs)
+
+    argv = launcher_argv(TRAIN_ITERS) + [
+        "--resume-dir", str(RUNS_DIR / "trained_ckpt"),
+        "--out", str(RUNS_DIR / "trained_export"), "--serve"]
+    log("trained: python -m repro_torch.launch.quantize " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()  # the trained path's run starts here
-    fin, astates, export_s, errs, reports = export(
-        torch, model, params, calib, recipe, [0, 29])
-    export_counts = ops.launch_counts()
-    recon_peak = torch.cuda.max_memory_allocated()
+    launcher.serve_engine_run = serve_engine_run
+    try:
+        ops.reset_launch_counts()  # the trained path's run starts here
+        t0 = time.perf_counter()
+        res = launcher.main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()  # the trained path's run ends here
+        launcher_s = time.perf_counter() - t0
+    finally:
+        launcher.serve_engine_run = real_serve
+    export_counts, export_s = marks["export"], marks["export_s"]
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    peak = torch.cuda.max_memory_allocated()
+    reports = res.reports
+    errs = [(r.err_before, r.err_after) for r in reports]
+    n_layers = res.cfg.n_layers
+    got_w8 = sorted(i for i, layer in enumerate(res.qparams["layers"])
+                    if any(qt.bits == 8 for qt in _qtensors(layer)))
+    if got_w8 != [0, n_layers - 1] or len(reports) != n_layers or \
+            res.resumed_units:
+        fail(f"trained: W8 layers {got_w8}, {len(reports)} reports, "
+             f"{res.resumed_units} resumed")
     steps = sum(r.iters for r in reports)
     loop_s = sum(r.iters / r.steps_per_s for r in reports)
-    log(f"trained: {steps} steps in {export_s:.2f}s ({loop_s:.2f}s in the "
-        f"Adam loops, {steps / loop_s:.1f} steps/s), peak {recon_peak} B")
+    log(f"trained: launcher {launcher_s:.2f}s, {steps} steps, export (to the "
+        f"serve run) {export_s:.2f}s, {loop_s:.2f}s in the Adam loops, "
+        f"{steps / loop_s:.1f} steps/s, peak {peak} B")
     log("trained seconds/steps_per_s per block: " + " ".join(
         f"{r.seconds:.3f}/{r.steps_per_s:.1f}" for r in reports))
     log(f"trained export launches {export_counts}")
@@ -938,6 +995,8 @@ def trained_phase(torch, np, model, params, export_only_errs):
     before = sum(a for a, _ in errs)
     after = sum(b for _, b in errs)
     baseline = sum(b for _, b in export_only_errs)
+    log("trained err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
     log(f"trained: sum of err_before {before:.6e}, sum of err_after "
         f"{after:.6e}; export-only sum of err_after {baseline:.6e}")
     if not all(math.isfinite(a) and math.isfinite(b) for a, b in errs) or not (
@@ -945,17 +1004,32 @@ def trained_phase(torch, np, model, params, export_only_errs):
         fail("training did not lower the reconstruction error below its own "
              "start and the export-only run's")
 
-    qparams = dict(params, layers=list(fin))
-    ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
-    requests, outs, stats = run_engine(torch, np, model, qparams, ctx)
-    counts = ops.launch_counts()  # the trained path's run ends here
-    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    served = res.serve
+    st, outs = served["stats"], served["outputs"]
+    requests = [(r.rid, r.tokens, r.max_new) for r in served["requests"]]
+    if sorted(outs) != list(range(8)) or any(
+            len(v) != 16 or min(v) < 0 or max(v) >= res.cfg.vocab
+            for v in outs.values()):
+        fail(f"trained serve: bad outputs {outs}")
+    n_tok = sum(len(v) for v in outs.values())
+    rq = st["requests"]
+    stats = {"serve_s": served["seconds"],
+             "tokens_per_s": n_tok / served["seconds"],
+             "decode_steps": st["decode_steps"],
+             "decode_ms_per_step": rq["decode_step_us"]["mean"] / 1e3,
+             "prefill_us": st["prefill_us"], "prefill_calls": st["prefill_calls"],
+             "ttft_us": rq["ttft_us"], "queue_wait_us": rq["queue_wait_us"],
+             "hbm_per_slot_bytes": st["hbm_per_slot_bytes"]}
+    log(f"trained serve (scheduler): {n_tok} tokens in {served['seconds']:.3f}s"
+        f" -> {stats['tokens_per_s']:.1f} tokens/s, {st['decode_steps']} "
+        f"decode steps of {stats['decode_ms_per_step']:.2f} ms (mean), ttft "
+        f"p50 {rq['ttft_us']['p50'] / 1e3:.2f} ms")
     log(f"trained serve launches {serve_counts}")
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving the trained weights did not launch K1 and K2: "
              f"{serve_counts}")
-    rc = recheck_request0(torch, model, qparams, recipe, astates, requests,
-                          outs)
+    rc = recheck_request0(torch, res.model, res.qparams, res.recipe,
+                          res.astates, requests, outs)
     rc.pop("routes")
     log(f"trained: torch backend re-run of request 0: logits relative L2 "
         f"diff {rc['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
@@ -964,12 +1038,14 @@ def trained_phase(torch, np, model, params, export_only_errs):
     if not math.isfinite(rc["rel_l2"]) or rc["rel_l2"] > 5e-2 or not rc["ties_ok"]:
         fail("trained: kernel and plain-version serving disagree beyond bf16 "
              "tolerance")
+    recipe = res.recipe
     return counts, dict(
-        stats, recipe={"setting": recipe.setting, "iters": recipe.iters,
-                       "lr": recipe.lr, "batch_size": recipe.batch_size,
-                       "calib": list(calib.shape)},
-        export_s=export_s, loop_s=loop_s, steps=steps,
-        steps_per_s=steps / loop_s, recon_peak_bytes=recon_peak,
+        stats, argv=argv,
+        recipe={"setting": recipe.setting, "iters": recipe.iters,
+                "lr": recipe.lr, "batch_size": recipe.batch_size,
+                "calib": [64, 64]},
+        launcher_s=launcher_s, export_s=export_s, loop_s=loop_s, steps=steps,
+        steps_per_s=steps / loop_s, max_memory_allocated=peak,
         err=errs, err_before_sum=before, err_after_sum=after,
         export_only_err_after_sum=baseline,
         blocks=[{"name": r.name, "seconds": r.seconds,
@@ -977,6 +1053,113 @@ def trained_phase(torch, np, model, params, export_only_errs):
                  "err_after": r.err_after} for r in reports],
         export_launches=export_counts, serve_launches=serve_counts,
         recheck=rc)
+
+
+def _same_tree(torch, a, b, where=""):
+    """Paths at which two loaded exports differ (tensors bit for bit)."""
+    if isinstance(a, dict) and isinstance(b, dict) and list(a) == list(b):
+        return [d for k in a for d in _same_tree(torch, a[k], b[k],
+                                                  f"{where}.{k}")]
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_tree(torch, x, y, f"{where}[{i}]")]
+    if hasattr(a, "codes") and hasattr(b, "codes"):
+        same = (a.shape, a.bits, a.packed) == (b.shape, b.bits, b.packed)
+        return ([] if same else [where]) + [
+            d for f in ("codes", "scale", "zero")
+            for d in _same_tree(torch, getattr(a, f), getattr(b, f),
+                                f"{where}.{f}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        if a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.reshape(-1).view(torch.uint8)):
+            return []
+    elif a == b:
+        return []
+    return [where]
+
+
+def preemption_phase(torch, np):
+    """A launcher run killed mid-way resumes to the same export, bit for bit:
+    (1) ``launcher_argv(PREEMPT_ITERS)`` in process, without a break, to
+    export A; (2) the same command in a subprocess with ``--resume-dir D
+    --out B``, sent SIGKILL once D's checkpoint records ``next_block >=
+    PREEMPT_AT``; (3) the same command in process, resuming from D, to B.
+    Every tensor of B (codes, scales, zeros, the fp leaves, the activation
+    states) must equal A's bit for bit, and every block's err_before and
+    err_after too (the killed process's blocks come from its checkpoint)."""
+    import os
+    import signal
+
+    from repro_torch.checkpoint import PTQCheckpointer, load_pytree
+    from repro_torch.launch import quantize as launcher
+
+    argv = launcher_argv(PREEMPT_ITERS)
+    ckpt, out_a, out_b = (str(RUNS_DIR / n) for n in
+                          ("preempt_ckpt", "preempt_a", "preempt_b"))
+    secs = {}
+    t0 = time.perf_counter()
+    res_a = launcher.main(argv + ["--out", out_a])
+    torch.cuda.synchronize()
+    secs["uninterrupted"] = time.perf_counter() - t0
+
+    log_path = RUNS_DIR / "preempt_child.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.quantize"] + argv + [
+        "--resume-dir", ckpt, "--out", out_b]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fh:
+        child = subprocess.Popen(cmd, env=env, stdout=fh,
+                                 stderr=subprocess.STDOUT, cwd=str(ROOT))
+        try:
+            killed_at = None
+            while child.poll() is None and time.perf_counter() - t0 < 300:
+                try:
+                    meta = PTQCheckpointer(ckpt).meta()
+                except (OSError, ValueError):  # caught mid-commit: poll again
+                    meta = None
+                if meta is not None and meta["next_block"] >= PREEMPT_AT:
+                    child.send_signal(signal.SIGKILL)
+                    killed_at = meta["next_block"]
+                    break
+                time.sleep(0.02)
+        finally:
+            if child.poll() is None and killed_at is None:
+                child.kill()
+            child.wait()
+    secs["killed_child"] = time.perf_counter() - t0
+    tail = log_path.read_text()[-3000:]
+    if killed_at is None or child.returncode != -signal.SIGKILL:
+        fail(f"preemption: the child was not killed mid-run (exit "
+             f"{child.returncode}, next_block {killed_at}):\n{tail}")
+    saved = PTQCheckpointer(ckpt).meta()["next_block"]
+    log(f"preemption: child killed at next_block {killed_at} (checkpoint "
+        f"holds {saved}) after {secs['killed_child']:.2f}s")
+
+    t0 = time.perf_counter()
+    res_b = launcher.main(argv + ["--resume-dir", ckpt, "--out", out_b])
+    torch.cuda.synchronize()
+    secs["resumed"] = time.perf_counter() - t0
+    if res_b.resumed_units != saved:
+        fail(f"preemption: resumed {res_b.resumed_units} blocks, the "
+             f"checkpoint held {saved}")
+    tree_a, _ = load_pytree(out_a, device=DEV)
+    tree_b, _ = load_pytree(out_b, device=DEV)
+    diff = _same_tree(torch, tree_a, tree_b)
+    errs_a = [(r.err_before, r.err_after) for r in res_a.reports]
+    errs_b = [(r.err_before, r.err_after) for r in res_b.reports]
+    bad = [i for i, (x, y) in enumerate(zip(errs_a, errs_b)) if x != y]
+    log(f"preemption: uninterrupted {secs['uninterrupted']:.2f}s, killed "
+        f"child {secs['killed_child']:.2f}s, resumed {secs['resumed']:.2f}s "
+        f"({res_b.resumed_units} blocks from the checkpoint); exports differ "
+        f"at {len(diff)} tensors, per-block errors at {len(bad)} blocks")
+    n_layers = res_a.cfg.n_layers
+    if diff or bad or len(errs_a) != n_layers or len(errs_b) != n_layers:
+        fail(f"preemption: the resumed export differs from the uninterrupted "
+             f"one: tensors {diff[:10]}, blocks {bad}")
+    return dict(seconds=secs, killed_at=killed_at, resumed_blocks=saved,
+                iters=PREEMPT_ITERS, err=errs_a,
+                err_after_sum=sum(b for _, b in errs_a))
 
 
 # ----------------------------------------------------------------- MoE path
@@ -1216,12 +1399,16 @@ def main() -> int:
     rows = kernels_phase(torch)
     log(f"kernels phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts, path, smollm = path_phase(torch, np)
+    counts, path = path_phase(torch, np)
     log(f"smollm path phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    trained_counts, trained = trained_phase(torch, np, *smollm, path["err"])
-    log(f"smollm trained phase: {time.perf_counter() - t0:.1f}s")
-    del smollm
+    trained_counts, trained = trained_phase(torch, np, path["err"])
+    log(f"smollm trained phase (launcher): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    preemption = preemption_phase(torch, np)
+    log(f"smollm preemption phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1260,7 +1447,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
-         "trained_path": trained, "moe_path": moe_path}, indent=1))
+         "trained_path": trained, "preemption": preemption,
+         "moe_path": moe_path}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

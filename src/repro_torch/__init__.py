@@ -13,6 +13,9 @@ quantized matmuls launch the hand-written kernels under ``csrc/`` for CUDA
 tensors and their plain PyTorch versions for CPU tensors; nothing falls back
 from one to the other.
 
-Ported so far: export-only FlexRound PTQ of the dense decoder and the
-slot-based serving engine over the int8 KV cache (see ROADMAP.md).
+Ported so far (see ROADMAP.md): FlexRound PTQ with its Adam loop and the
+baseline methods for the dense and MoE decoders, the slot-based serving
+engine over the int8 KV cache with its scheduler, and the launcher
+``python -m repro_torch.launch.quantize`` with its calibration data,
+per-block checkpoints and telemetry.
 """

@@ -25,15 +25,23 @@ seed; QDrop keeps one stream per site, keyed by the crc32 salt of the site
 name (``qdrop.SiteStreams``). A caller may pass its own draws instead
 (``Schedule``), which is how the parity tests replay JAX's.
 
+Per-block checkpoints (``quantize_blocks(checkpoint_dir=)``) resume a
+killed run at its first unfinished block with the streams, states, reports
+and block seeds of a run without a break, so the resumed run's results
+equal that run's bit for bit. (The reference's resume pushes the saved
+streams through the finished blocks a second time and draws block 0's key
+for the first resumed block; ROADMAP Queue 3 records the fault, which the
+port does not copy.) With telemetry enabled each block opens a
+``recon.block`` span and its Adam loop a ``recon.chunk`` span, synced to the
+device at its end.
+
 Not ported here (see ROADMAP): the reference's compiled-engine cache and
-its counters (``engine_stats``, ``engine_scope``, ``probe_teacher``), data
-parallelism over a mesh (``mesh=``), per-block checkpoints
-(``checkpoint_dir=``) and telemetry spans.
+its counters (``engine_stats``, ``engine_scope``, ``probe_teacher``; the
+eager loop compiles nothing) and data parallelism over a mesh (``mesh=``).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,6 +52,7 @@ from repro_torch.core import paths as pth
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.qtensor import dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
+from repro_torch.obs.telemetry import TELEMETRY, Stopwatch
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 
 # Per-site lr rules ride adam_update's per-leaf lr_scale tree, so the base
@@ -51,14 +60,6 @@ from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 _W_BASE_CFG = AdamConfig(lr=1.0)
 
 Key = Union[None, int, torch.Generator]
-
-
-def _now() -> float:
-    """Host clock for ``BlockReport.seconds`` and ``steps_per_s``. The
-    reference times through ``repro.obs`` (quantlint QL106); the port may
-    not import it and has no telemetry layer of its own yet (ROADMAP Queue
-    1, item 12), so this one call is the documented exception."""
-    return time.perf_counter()  # quantlint: ignore[QL106]
 
 
 @dataclasses.dataclass
@@ -310,22 +311,25 @@ def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
     err0 = recon_error(block, recipe, wstates, c_a, x_q, y_fp, plans)
     losses = torch.zeros((recipe.iters,), dtype=torch.float32, device=dev)
     mses = torch.zeros((recipe.iters,), dtype=torch.float32, device=dev)
-    t0 = _now()
-    for it in range(recipe.iters):
-        if idx is None:
-            xb, yb, wb = x_q, y_fp, sample_weight
-        else:
-            ix = idx[it]
-            xb, yb = x_q.index_select(0, ix), y_fp.index_select(0, ix)
-            wb = (None if sample_weight is None
-                  else sample_weight.index_select(0, ix))
-        key = streams if masks is None else masks[it].__getitem__
-        wstates, c_a, wopt, aopt, loss, mse = step(
-            block.params, wstates, c_a, wopt, aopt, xb, yb, wb, it, key)
-        losses[it] = loss
-        mses[it] = mse
+    sw = Stopwatch()
+    with TELEMETRY.span("recon.chunk", block=block.name, start=0,
+                        steps=recipe.iters) as sp:
+        for it in range(recipe.iters):
+            if idx is None:
+                xb, yb, wb = x_q, y_fp, sample_weight
+            else:
+                ix = idx[it]
+                xb, yb = x_q.index_select(0, ix), y_fp.index_select(0, ix)
+                wb = (None if sample_weight is None
+                      else sample_weight.index_select(0, ix))
+            key = streams if masks is None else masks[it].__getitem__
+            wstates, c_a, wopt, aopt, loss, mse = step(
+                block.params, wstates, c_a, wopt, aopt, xb, yb, wb, it, key)
+            losses[it] = loss
+            mses[it] = mse
+        sp.block_on(mses)
     curves = torch.stack([losses, mses]).cpu().numpy()  # the block's one sync
-    loop_s = _now() - t0
+    loop_s = sw.elapsed_s()
     err1 = (recon_error(block, recipe, wstates, c_a, x_q, y_fp, plans)
             if recipe.iters else err0)
     a_out = dict(astates_all)
@@ -343,17 +347,18 @@ def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
     (wstates, astates, report). ``key``: a seed or a ``torch.Generator``
     (None: ``recipe.seed``). ``sample_weight``: optional (N,) per-sample
     loss weights. ``schedule``: the caller's draws (see ``Schedule``)."""
-    t0 = _now()
-    plans = site_plans(block, recipe)
-    with torch.no_grad():
-        wstates = init_wstates(block, recipe)
-    astates = astates if astates is not None else init_astates(
-        block, recipe, x_q)
-    wstates, astates, err0, err1, loop_s, loss_curve, mse_curve = _run(
-        block, recipe, plans, wstates, astates, x_q, y_fp,
-        _seed(key, recipe), sample_weight, schedule)
+    sw = Stopwatch()
+    with TELEMETRY.span("recon.block", block=block.name, iters=recipe.iters):
+        plans = site_plans(block, recipe)
+        with torch.no_grad():
+            wstates = init_wstates(block, recipe)
+        astates = astates if astates is not None else init_astates(
+            block, recipe, x_q)
+        wstates, astates, err0, err1, loop_s, loss_curve, mse_curve = _run(
+            block, recipe, plans, wstates, astates, x_q, y_fp,
+            _seed(key, recipe), sample_weight, schedule)
     return wstates, astates, BlockReport(
-        block.name, err0, err1, recipe.iters, _now() - t0,
+        block.name, err0, err1, recipe.iters, sw.elapsed_s(),
         steps_per_s=recipe.iters / max(loop_s, 1e-9),
         loss_curve=loss_curve, mse_curve=mse_curve)
 
@@ -402,7 +407,9 @@ def _explode_layerwise(block: BlockHandle, recipe: QuantRecipe, x_q):
 
 def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
                     x0: torch.Tensor, key: Key = None, as_qtensor: bool = True,
+                    checkpoint_dir: Optional[str] = None,
                     progress: Optional[Callable[[str], None]] = None, *,
+                    allocation: Optional[dict] = None,
                     sample_weight: Optional[torch.Tensor] = None,
                     ) -> Tuple[List[Any], Dict[str, Any], List[BlockReport]]:
     """Sequentially quantize a chain of blocks (the paper's full procedure).
@@ -410,17 +417,37 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
     Returns (per-block finalized params, astates, reports). ``key``: a seed
     or a ``torch.Generator`` (None: ``recipe.seed``); each block takes its
     own seed from it, and in layer-wise mode each site folds its salt into
-    its block's. Tensors stay on x0's device."""
+    its block's. Tensors stay on x0's device.
+
+    ``checkpoint_dir``: after each block the finalized blocks, activation
+    states, reports and both streams are saved there (atomically); a run
+    that finds a checkpoint resumes at its first unfinished block, taking
+    the streams as saved and drawing (and discarding) the seeds of the
+    finished blocks. ``allocation``: summary of the bit allocation that
+    emitted the recipe's rules, recorded in every checkpoint; a resume
+    whose per-site plans or allocation digest differ raises ("PTQ resume
+    mismatch")."""
     seeds = torch.Generator()
     seeds.manual_seed(_seed(key, recipe))
     x_fp = x_q = x0
     astates: Dict[str, Any] = {}
     finalized: List[Any] = []
     reports: List[BlockReport] = []
+    ckpt, start = None, 0
+    if checkpoint_dir is not None:
+        # imported here: the checkpoint module imports core (QTensor)
+        from repro_torch.checkpoint.checkpoint import PTQCheckpointer
+        ckpt = PTQCheckpointer(checkpoint_dir)
+        resumed = ckpt.load(blocks, recipe, allocation=allocation,
+                            device=x0.device)
+        if resumed is not None:
+            start, finalized, astates, reports, x_fp, x_q = resumed
     for i, block in enumerate(blocks):
+        bseed = int(torch.randint(0, 2**62, (1,), generator=seeds))
+        if i < start:  # finished before the checkpoint: nothing to redo
+            continue
         with torch.no_grad():
             y_fp = block.apply(block.params, x_fp, QuantCtx(mode="fp"))
-        bseed = int(torch.randint(0, 2**62, (1,), generator=seeds))
         astates = init_astates(block, recipe, x_q, prev=astates)
         if recipe.recon == "layer":
             wstates: Dict[str, Any] = {}
@@ -450,4 +477,10 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
             progress(f"[{i + 1}/{len(blocks)}] {block.name} "
                      f"err {reports[-1].err_before:.3e} -> "
                      f"{reports[-1].err_after:.3e}")
+        if ckpt is not None:
+            plan_meta = [{n: p.summary()
+                          for n, p in site_plans(b, recipe).items()}
+                         for b in blocks[:i + 1]]
+            ckpt.save(i + 1, finalized, astates, reports, x_fp, x_q,
+                      plans=plan_meta, allocation=allocation)
     return finalized, astates, reports

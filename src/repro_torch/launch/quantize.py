@@ -1,0 +1,383 @@
+"""PTQ launcher of the port (the counterpart of ``repro/launch/quantize.py``):
+load a trained checkpoint (or draw random weights), run block-wise FlexRound
+(or any registered method), export integer weights, optionally serve them.
+
+    PYTHONPATH=src python -m repro_torch.launch.quantize --arch smollm-135m \\
+        --smoke --w-bits 4 --iters 2 --calib 8 --seq 16 --device cpu --serve
+
+Mixed precision via per-site rules (glob over site names, last match wins):
+
+    ... --w-bits 4 --rule 'layers.0.*:w_bits=8' --rule 'layers.29.*:w_bits=8'
+
+The flags and defaults are the reference's. Runs on the card unless
+``--device cpu`` is passed; ``--backend`` picks the deploy matmuls:
+``auto`` (the hand-written kernels for CUDA tensors, their plain versions
+for CPU tensors), ``kernel`` (the kernels; CUDA only) or ``torch`` (the plain
+versions).
+
+Fault tolerance: per-block PTQ checkpoints (``--resume-dir``). A killed run
+resumes at the first unfinished block and finishes with the results of a run
+without a break, bit for bit; resuming under different rules fails loudly
+(per-site plans are recorded in the checkpoint).
+
+Flags whose subsystem is not ported yet exit with an error naming the
+ROADMAP item: ``--mesh``/``--multi-pod`` (item 11), ``--auto-bits``/
+``--budget``/``--alloc-objective`` (item 10), ``--analyze``/
+``--analyze-mem`` (item 15) and ``--profile`` (item 12). ``--scan-chunk``
+takes only its default: the eager loop has no scan chunks.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager, PTQCheckpointer, save_pytree
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import QuantRecipe, method_api
+from repro_torch.core.context import QuantCtx
+from repro_torch.core.qtensor import tree_weight_bytes
+from repro_torch.core.reconstruct import quantize_blocks, site_plans
+from repro_torch.data import CalibrationSet, SyntheticTokens
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import build_model
+from repro_torch.obs.sink import JsonlSink, RunManifest, current_manifest
+from repro_torch.obs.telemetry import TELEMETRY, Stopwatch, block_on
+from repro_torch.serve.engine import EngineConfig, ServeEngine
+from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.smoke import serve_capability
+
+# The reference fuses this many steps per jitted dispatch; the eager loop
+# has no chunks, so the flag accepts only this value.
+DEFAULT_CHUNK = 100
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.quantize")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--method", default="flexround",
+                    choices=list(method_api.available_methods()))
+    ap.add_argument("--setting", default="qdrop", choices=["brecq", "qdrop"])
+    ap.add_argument("--recon", default="block", choices=["block", "layer"])
+    ap.add_argument("--w-bits", type=int, default=8)
+    ap.add_argument("--a-bits", type=int, default=None)
+    ap.add_argument("--w-granularity", default="per_channel")
+    ap.add_argument("--rule", action="append", default=[],
+                    metavar="GLOB:K=V[,K=V...]",
+                    help="per-site override, e.g. 'layers.0.*:w_bits=8'; "
+                         "repeatable, later rules win")
+    ap.add_argument("--calib", type=int, default=64)
+    ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--from-ckpt", default=None,
+                    help="CheckpointManager dir (the port's format) of a "
+                         "trained model; its state holds 'params'")
+    ap.add_argument("--resume-dir", default=None,
+                    help="per-block PTQ checkpoints: a killed run resumes "
+                         "at its first unfinished block")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="default cuda; cpu runs the plain versions on the "
+                         "CPU")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "kernel", "torch"],
+                    help="deploy-mode matmuls: auto = the CUDA kernels for "
+                         "CUDA tensors, the plain versions for CPU tensors; "
+                         "kernel = the CUDA kernels; torch = the plain "
+                         "versions")
+    ap.add_argument("--serve-smoke", action="store_true",
+                    help="after quantization, time a short deploy-mode "
+                         "decode and report us/step + weight bytes moved")
+    ap.add_argument("--serve", action="store_true",
+                    help="after quantization, serve a synthetic request "
+                         "stream through the scheduler and the slot engine "
+                         "(int8 KV) and report tokens/s, HBM/slot, latency "
+                         "percentiles")
+    ap.add_argument("--serve-slots", type=int, default=4,
+                    help="decode slots for --serve")
+    ap.add_argument("--serve-requests", type=int, default=8,
+                    help="synthetic request count for --serve")
+    ap.add_argument("--serve-max-new", type=int, default=16,
+                    help="tokens generated per request for --serve")
+    ap.add_argument("--no-kv-quant", action="store_true",
+                    help="serve with the fp KV cache instead of the int8 "
+                         "default")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="enable telemetry (repro_torch.obs): spans, "
+                         "counters and histograms stream to "
+                         "DIR/events.jsonl as manifest-stamped JSONL")
+    ap.add_argument("--scan-chunk", type=int, default=DEFAULT_CHUNK,
+                    help="the reference's steps per fused dispatch; the "
+                         "port's eager loop accepts only the default")
+    # not ported yet: each exits with its ROADMAP item (see _reject_unported)
+    ap.add_argument("--analyze", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 15)")
+    ap.add_argument("--analyze-mem", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 15)")
+    ap.add_argument("--auto-bits", type=float, default=None, metavar="VALUE",
+                    help="not ported yet (ROADMAP Queue 1 item 10)")
+    ap.add_argument("--budget", default=None, choices=["avg_bits", "bytes"],
+                    help="not ported yet (ROADMAP Queue 1 item 10)")
+    ap.add_argument("--alloc-objective", default=None,
+                    choices=["mse", "fisher", "combined"],
+                    help="not ported yet (ROADMAP Queue 1 item 10)")
+    ap.add_argument("--mesh", default=None, choices=["debug", "production"],
+                    help="not ported yet (ROADMAP Queue 1 item 11)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 11)")
+    ap.add_argument("--profile", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    return ap
+
+
+def _reject_unported(args) -> None:
+    """Exit (non-zero, naming the ROADMAP item) on a flag whose subsystem
+    the port does not have yet; never ignore one silently."""
+    waits = (
+        (args.mesh is not None or args.multi_pod, "--mesh/--multi-pod",
+         "distributed calibration", 11),
+        (args.auto_bits is not None or args.budget is not None
+         or args.alloc_objective is not None,
+         "--auto-bits/--budget/--alloc-objective", "automatic bit allocation",
+         10),
+        (args.analyze or args.analyze_mem, "--analyze/--analyze-mem",
+         "the static checks", 15),
+        (args.profile, "--profile", "the profiler wiring", 12),
+    )
+    for given, flags, what, item in waits:
+        if given:
+            raise SystemExit(f"repro_torch.launch.quantize: {flags}: {what} "
+                             f"is not ported yet (ROADMAP Queue 1 item "
+                             f"{item})")
+    if args.scan_chunk != DEFAULT_CHUNK:
+        raise SystemExit(
+            f"repro_torch.launch.quantize: --scan-chunk {args.scan_chunk}: "
+            "the port's reconstruction loop is eager and has no scan chunks; "
+            f"only the default {DEFAULT_CHUNK} is accepted")
+
+
+@dataclasses.dataclass
+class LaunchResult:
+    """What one launcher run produced (returned by ``main``/``run``)."""
+    cfg: Any
+    model: Any
+    qparams: Any
+    astates: Dict[str, Any]
+    recipe: QuantRecipe
+    reports: List[Any]
+    resumed_units: int
+    out: str
+    serve: Optional[Dict[str, Any]] = None
+    serve_smoke_us: Optional[float] = None
+
+
+def _rule_text(rule) -> str:
+    """The canonical ``--rule`` form, so the export's metadata round-trips."""
+    return rule.pattern + ":" + ",".join(f"{k}={v}" for k, v in rule.overrides)
+
+
+def run(args, params=None, calib_tokens=None) -> LaunchResult:
+    """The launcher behind ``main``. ``params`` (a parameter tree) and
+    ``calib_tokens`` ((N, S) ints) replace the drawn weights and the
+    synthetic calibration set when given (the tests pass the reference's)."""
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    if params is None and args.from_ckpt:
+        state, _ = CheckpointManager(args.from_ckpt).restore(device=dev)
+        if state is None:
+            raise SystemExit(f"--from-ckpt {args.from_ckpt}: no checkpoint")
+        params = state["params"]
+    elif params is None:
+        print("no --from-ckpt: quantizing randomly-initialized weights "
+              "(structure demo)")
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+
+    recipe = QuantRecipe(method=args.method, setting=args.setting,
+                         recon=args.recon, w_bits=args.w_bits,
+                         w_granularity=args.w_granularity,
+                         a_bits=args.a_bits, iters=args.iters, lr=args.lr,
+                         batch_size=min(16, args.calib),
+                         rules=tuple(args.rule))
+    if calib_tokens is None:
+        src = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq, seed=0)
+        calib_tokens = CalibrationSet.build(src, args.calib).tokens
+    calib_tokens = torch.as_tensor(calib_tokens).to(dev)
+
+    if args.telemetry:
+        manifest = RunManifest.collect(backend=args.backend, device=dev,
+                                       recipe=recipe)
+        events = os.path.join(args.telemetry, "events.jsonl")
+        TELEMETRY.enable(sink=JsonlSink(events), manifest=manifest)
+        print(f"telemetry: streaming to {events} "
+              f"(git {manifest.git_sha}, schema {manifest.schema_version})")
+    try:
+        result = _quantize_and_serve(args, cfg, model, params, recipe,
+                                     calib_tokens, dev)
+        if TELEMETRY.enabled:
+            TELEMETRY.emit({"kind": "snapshot", **TELEMETRY.snapshot()})
+    finally:
+        if args.telemetry:
+            TELEMETRY.disable()
+    return result
+
+
+def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
+                        dev) -> LaunchResult:
+    x0, blocks, assemble = model.quant_blocks(params, calib_tokens)
+    if recipe.rules:
+        overridden = [(n, p.summary()) for b in blocks
+                      for n, p in site_plans(b, recipe).items()
+                      if recipe.overrides_for(n)]
+        print(f"rules override {len(overridden)} site(s):")
+        for n, s in overridden:
+            print(f"  {n}: {s}")
+    resumed = 0
+    if args.resume_dir is not None:
+        saved = PTQCheckpointer(args.resume_dir).meta()
+        resumed = 0 if saved is None else len(saved["reports"])
+    finalized, astates, reports = quantize_blocks(
+        blocks, recipe, x0, checkpoint_dir=args.resume_dir,
+        progress=lambda s: print(s, flush=True))
+    qparams = assemble(finalized)
+
+    ran = reports[resumed:]  # units reconstructed by this process
+    steps = sum(r.iters for r in ran)
+    loop_s = sum(r.iters / r.steps_per_s for r in ran if r.steps_per_s > 0)
+    print(f"recon: {steps} steps over {len(ran)} unit(s) in {loop_s:.2f}s "
+          f"({steps / max(loop_s, 1e-9):.1f} steps/s); {resumed} unit(s) "
+          "resumed from the checkpoint; eager loop, nothing compiled",
+          flush=True)
+
+    out = args.out or os.path.join(tempfile.gettempdir(),
+                                   f"quantized_{cfg.name}_{args.method}")
+    save_pytree(out, {"params": qparams, "astates": astates},
+                {"arch": cfg.name, "method": args.method,
+                 "w_bits": args.w_bits, "a_bits": args.a_bits,
+                 "rules": [_rule_text(r) for r in recipe.rules],
+                 "manifest": current_manifest().to_dict()})
+    tot0 = sum(r.err_before for r in reports)
+    tot1 = sum(r.err_after for r in reports)
+    print(f"quantized {len(blocks)} blocks: recon err {tot0:.3e} -> "
+          f"{tot1:.3e}; saved to {out}")
+
+    result = LaunchResult(cfg=cfg, model=model, qparams=qparams,
+                          astates=astates, recipe=recipe, reports=reports,
+                          resumed_units=resumed, out=out)
+    if args.serve_smoke:
+        result.serve_smoke_us = serve_smoke(
+            model, qparams, astates, recipe, cfg, backend=args.backend,
+            device=dev)
+    if args.serve:
+        result.serve = serve_engine_run(
+            model, qparams, astates, recipe, cfg, backend=args.backend,
+            slots=args.serve_slots, requests=args.serve_requests,
+            max_new=args.serve_max_new, kv_quant=not args.no_kv_quant,
+            device=dev)
+    return result
+
+
+@torch.no_grad()
+def serve_smoke(model, qparams, astates, recipe, cfg, *, backend: str = "auto",
+                device: DeviceLike = None, batch: int = 2,
+                prompt_len: int = 16, steps: int = 8) -> float:
+    """Short deploy-mode decode: prefill a tiny batch, then time ``steps``
+    greedy decode steps (the device synchronized at the end). Returns
+    us/step (also printed, with the weight bytes each step moves)."""
+    ok, reason = serve_capability(model)
+    if not ok:
+        print(f"serve-smoke: skipped arch={cfg.name} reason={reason}")
+        return float("nan")
+    dev = resolve_device(device)
+    ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates,
+                   backend=backend)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    cache = model.init_cache(batch, prompt_len + steps + 1, device=dev)
+    _, cache = model.prefill(qparams, tokens, cache, ctx)
+    tok = tokens[:, -1:]
+    logits, cache = model.decode_step(qparams, tok, cache, prompt_len,
+                                      ctx)  # warm
+    block_on(logits)
+    sw = Stopwatch()
+    for i in range(steps):
+        logits, cache = model.decode_step(qparams, tok, cache,
+                                          prompt_len + 1 + i, ctx)
+    block_on(logits)
+    us = sw.elapsed_us() / steps
+    wbytes = tree_weight_bytes(qparams)
+    print(f"serve-smoke[{backend}]: {us:.1f} us/step, "
+          f"weight bytes/step {wbytes / 2**20:.2f} MiB")
+    return us
+
+
+def serve_engine_run(model, qparams, astates, recipe, cfg, *,
+                     backend: str = "auto", slots: int = 4,
+                     requests: int = 8, max_new: int = 16,
+                     kv_quant: bool = True, device: DeviceLike = None
+                     ) -> Optional[Dict[str, Any]]:
+    """Serve a synthetic request stream (the reference's: prompts of 4-15
+    tokens from ``np.random.default_rng(0)``) through the ``Scheduler`` and
+    the slot engine, deploy-mode weights, int8 KV cache by default. Prints
+    tokens/s, HBM per slot, per-bucket prefill latency and per-request
+    TTFT/queue-wait percentiles. Returns {"requests", "outputs", "stats",
+    "seconds"}, or None (with a machine-readable reason printed) for a
+    family the slot layout cannot serve."""
+    ok, reason = serve_capability(model, engine=True, kv_quant=kv_quant)
+    if not ok:
+        print(f"serve: skipped arch={cfg.name} reason={reason}")
+        return None
+    ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates,
+                   backend=backend)
+    max_len = max(32, 2 * max_new)
+    engine = ServeEngine(model, qparams, ctx,
+                         EngineConfig(slots=slots, max_len=max_len,
+                                      prefill_group=2, kv_quant=kv_quant),
+                         device=device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i,
+                    tokens=rng.integers(0, cfg.vocab,
+                                        size=int(rng.integers(4, 16)),
+                                        ).astype(np.int32),
+                    max_new=max_new)
+            for i in range(requests)]
+    sw = Stopwatch()
+    with Scheduler(engine) as sched:
+        outs = sched.run(reqs)
+        st = sched.stats()
+    dt = sw.elapsed_s()
+    n_tok = sum(len(v) for v in outs.values())
+    pf = " ".join(f"b{b}={s['p50']:.0f}us(n={s['count']})"
+                  for b, s in sorted(st["prefill_us"].items()))
+    rq = st["requests"]
+    print(f"serve[{backend}] kv={'int8' if kv_quant else 'fp'}: "
+          f"{requests} requests x {max_new} tokens on {slots} slots -> "
+          f"{n_tok / dt:.1f} tokens/s, "
+          f"hbm_per_slot {st['hbm_per_slot_MiB']:.4f} MiB, "
+          f"compile_count {st['compile_count']} "
+          f"(buckets {st['buckets']}), prefill {pf}")
+    print(f"serve requests: ttft p50={rq['ttft_us']['p50']:.0f}us "
+          f"p95={rq['ttft_us']['p95']:.0f}us, "
+          f"queue_wait p50={rq['queue_wait_us']['p50']:.0f}us "
+          f"p95={rq['queue_wait_us']['p95']:.0f}us, "
+          f"detok_errors={rq['detok_errors']}")
+    return {"requests": reqs, "outputs": dict(outs), "stats": st,
+            "seconds": dt}
+
+
+def main(argv: Optional[List[str]] = None) -> LaunchResult:
+    args = build_parser().parse_args(argv)
+    _reject_unported(args)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,36 @@
+"""Observability layer of the port (``repro/obs``'s counterpart).
+
+  telemetry.py       process-global counters/gauges/histograms + nested
+                     host-side spans (disabled by default, no-op when off)
+  sink.py            JSONL event sink + RunManifest (run identity stamped
+                     into checkpoint meta, exports and serve stats)
+  serve_metrics.py   per-request lifecycle metrics: queue wait, TTFT,
+                     per-bucket prefill histograms, occupancy/backlog
+
+Not ported yet (ROADMAP Queue 1 item 12): ``compile_events`` (it would count
+CUDA-graph captures) and ``profiler`` (a ``torch.profiler`` wrapper).
+"""
+from repro_torch.obs.sink import (  # noqa: F401
+    SCHEMA_VERSION,
+    JsonlSink,
+    ListSink,
+    RunManifest,
+    current_manifest,
+    validate_events,
+)
+from repro_torch.obs.telemetry import (  # noqa: F401
+    TELEMETRY,
+    Counter,
+    Gauge,
+    Histogram,
+    Stopwatch,
+    counter,
+    gauge,
+    histogram,
+    now,
+    span,
+)
+from repro_torch.obs.serve_metrics import (  # noqa: F401
+    ServeMetrics,
+    percentiles_from_events,
+)

@@ -18,6 +18,14 @@ The engine runs eagerly: every call launches its kernels directly and the
 cache is updated in place. There are no CUDA graphs yet (one per bucket and
 one for decode are queued in ROADMAP), so nothing is captured and
 ``compile_count`` is 0. Greedy decoding with a fixed ``max_new`` per request.
+
+Metrics (host-side, always on): ``engine.metrics`` is a
+:class:`repro_torch.obs.ServeMetrics` fed with each prefill's and decode
+step's wall time (both calls end in a host sync, so the time includes the
+device's) and the slot occupancy; with telemetry enabled the calls also
+open the spans ``serve.build``, ``serve.prefill`` and ``serve.decode_step``.
+The host side (admission queue, detokenize thread) lives in
+:mod:`repro_torch.serve.scheduler`.
 """
 from __future__ import annotations
 
@@ -28,6 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.serve_metrics import ServeMetrics
+from repro_torch.obs.sink import current_manifest
+from repro_torch.obs.telemetry import TELEMETRY, Stopwatch
 from repro_torch.serve import kv as skv
 from repro_torch.serve.smoke import serve_capability
 
@@ -87,20 +98,24 @@ class ServeEngine:
         # eager engine: no CUDA graph is captured (see the module docstring)
         self.compile_count = 0
         self.prefill_calls: Dict[int, int] = {b: 0 for b in self.buckets}
+        self.metrics = ServeMetrics()
         self.decode_steps = 0
         self.tokens_emitted = 0
         self.slots: List[SlotView] = [SlotView() for _ in range(self.cfg.slots)]
         self._finished: List[Tuple[int, List[int]]] = []
         c = self.cfg
-        self.state = {
-            "cache": model.init_cache(c.slots, c.max_len, dtype=c.dtype,
-                                      kv_quant=c.kv_quant, device=self.device),
-            "tokens": torch.zeros((c.slots, 1), dtype=torch.int32,
-                                  device=self.device),
-            "pos": torch.zeros((c.slots,), dtype=torch.int32, device=self.device),
-            "remaining": torch.zeros((c.slots,), dtype=torch.int32,
-                                     device=self.device),
-        }
+        with TELEMETRY.span("serve.build", buckets=len(self.buckets)):
+            self.state = {
+                "cache": model.init_cache(c.slots, c.max_len, dtype=c.dtype,
+                                          kv_quant=c.kv_quant,
+                                          device=self.device),
+                "tokens": torch.zeros((c.slots, 1), dtype=torch.int32,
+                                      device=self.device),
+                "pos": torch.zeros((c.slots,), dtype=torch.int32,
+                                   device=self.device),
+                "remaining": torch.zeros((c.slots,), dtype=torch.int32,
+                                         device=self.device),
+            }
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.rid is None]
@@ -143,24 +158,29 @@ class ServeEngine:
             true_len[row] = n
             max_new[row] = max(mn, 1)
         dev = self.device
-        fresh = self.model.init_cache(G, bucket, dtype=c.dtype,
-                                      kv_quant=c.kv_quant, device=dev)
-        true_len_t = torch.as_tensor(true_len, device=dev)
-        last, fresh = self.model.prefill(
-            self.params, torch.as_tensor(tokens, device=dev), fresh, self.ctx,
-            true_len=true_len_t)
-        first = _greedy(self.model, self.params, last)  # (G,)
-        # scatter the real rows only (dummy rows are filtered, not dropped
-        # by an out-of-range index)
-        slot_ids = torch.as_tensor(free[:n_real], device=dev)
-        cache = self.state["cache"]
-        for nm in fresh:
-            cache[nm][:, slot_ids, :bucket] = fresh[nm][:, :n_real].to(cache[nm].dtype)
-        self.state["tokens"][slot_ids] = first[:n_real, None]
-        self.state["pos"][slot_ids] = true_len_t[:n_real].to(torch.int32)
-        self.state["remaining"][slot_ids] = torch.as_tensor(
-            np.maximum(max_new[:n_real] - 1, 0), dtype=torch.int32, device=dev)
-        first = first.tolist()  # host sync: first tokens are needed
+        sw = Stopwatch()
+        with TELEMETRY.span("serve.prefill", bucket=bucket, group=n_real):
+            fresh = self.model.init_cache(G, bucket, dtype=c.dtype,
+                                          kv_quant=c.kv_quant, device=dev)
+            true_len_t = torch.as_tensor(true_len, device=dev)
+            last, fresh = self.model.prefill(
+                self.params, torch.as_tensor(tokens, device=dev), fresh,
+                self.ctx, true_len=true_len_t)
+            first = _greedy(self.model, self.params, last)  # (G,)
+            # scatter the real rows only (dummy rows are filtered, not
+            # dropped by an out-of-range index)
+            slot_ids = torch.as_tensor(free[:n_real], device=dev)
+            cache = self.state["cache"]
+            for nm in fresh:
+                cache[nm][:, slot_ids, :bucket] = fresh[nm][:, :n_real].to(
+                    cache[nm].dtype)
+            self.state["tokens"][slot_ids] = first[:n_real, None]
+            self.state["pos"][slot_ids] = true_len_t[:n_real].to(torch.int32)
+            self.state["remaining"][slot_ids] = torch.as_tensor(
+                np.maximum(max_new[:n_real] - 1, 0), dtype=torch.int32,
+                device=dev)
+            first = first.tolist()  # host sync: first tokens are needed
+        self.metrics.observe_prefill(bucket, sw.elapsed_us())
         self.prefill_calls[bucket] += 1
         out = []
         for row, (rid, _, _) in enumerate(requests):
@@ -172,7 +192,9 @@ class ServeEngine:
             out.append((rid, tok))
             if s.remaining == 0:  # max_new=1: the prefill token was it
                 self._finished.append((rid, s.emitted))
+                self.metrics.on_finished(rid)
                 self.slots[free[row]] = SlotView()
+        self.metrics.set_occupancy(self.active)
         return out
 
     @torch.no_grad()
@@ -180,15 +202,19 @@ class ServeEngine:
         """One decode step across all slots; returns (rid, token) pairs for
         slots that were active. Frees slots whose budget is exhausted."""
         st = self.state
-        active = st["remaining"] > 0
-        logits, st["cache"] = self.model.decode_step(
-            self.params, st["tokens"], st["cache"], st["pos"], self.ctx)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        emitted = torch.where(active, nxt, torch.full_like(nxt, -1))
-        st["tokens"] = torch.where(active[:, None], nxt[:, None], st["tokens"])
-        st["pos"] = st["pos"] + active.to(torch.int32)
-        st["remaining"] = st["remaining"] - active.to(torch.int32)
-        emitted = emitted.tolist()  # host sync: tokens are consumed
+        sw = Stopwatch()
+        with TELEMETRY.span("serve.decode_step", active=self.active):
+            active = st["remaining"] > 0
+            logits, st["cache"] = self.model.decode_step(
+                self.params, st["tokens"], st["cache"], st["pos"], self.ctx)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            emitted = torch.where(active, nxt, torch.full_like(nxt, -1))
+            st["tokens"] = torch.where(active[:, None], nxt[:, None],
+                                       st["tokens"])
+            st["pos"] = st["pos"] + active.to(torch.int32)
+            st["remaining"] = st["remaining"] - active.to(torch.int32)
+            emitted = emitted.tolist()  # host sync: tokens are consumed
+        step_us = sw.elapsed_us()
         self.decode_steps += 1
         out = []
         for i, s in enumerate(self.slots):
@@ -201,7 +227,10 @@ class ServeEngine:
             out.append((s.rid, tok))
             if s.remaining <= 0:
                 self._finished.append((s.rid, s.emitted))
+                self.metrics.on_finished(s.rid)
                 self.slots[i] = SlotView()
+        self.metrics.observe_decode(step_us, len(out))
+        self.metrics.set_occupancy(self.active)
         return out
 
     @property
@@ -217,13 +246,21 @@ class ServeEngine:
         return skv.hbm_per_slot_bytes(self.state["cache"], self.cfg.slots)
 
     def stats(self) -> Dict[str, Any]:
+        """Drain point for the engine's metrics. ``prefill_us`` is a
+        per-bucket histogram summary ({count, mean, p50, p95, max} over
+        every call); ``requests`` the per-request lifecycle summaries
+        (queue wait, TTFT, decode-step percentiles, occupancy, backlog,
+        detok_errors); ``manifest`` stamps the run identity."""
         return {
             "compile_count": self.compile_count,
             "buckets": list(self.buckets),
             "prefill_calls": dict(self.prefill_calls),
+            "prefill_us": self.metrics.prefill_summary(),
             "decode_steps": self.decode_steps,
             "tokens_emitted": self.tokens_emitted,
             "hbm_per_slot_bytes": self.hbm_per_slot_bytes(),
             "hbm_per_slot_MiB": self.hbm_per_slot_bytes() / 2**20,
             "kv_quant": self.cfg.kv_quant,
+            "requests": self.metrics.request_summary(),
+            "manifest": current_manifest().brief(),
         }

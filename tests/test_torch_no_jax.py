@@ -26,7 +26,13 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.configs.llama4_scout_17b_a16e",
                "repro_torch.core.rtn", "repro_torch.core.adaround",
                "repro_torch.core.adaquant", "repro_torch.core.qdrop",
-               "repro_torch.optim", "repro_torch.optim.adam")
+               "repro_torch.optim", "repro_torch.optim.adam",
+               "repro_torch.obs", "repro_torch.obs.telemetry",
+               "repro_torch.obs.sink", "repro_torch.obs.serve_metrics",
+               "repro_torch.serve.scheduler", "repro_torch.data",
+               "repro_torch.data.pipeline", "repro_torch.checkpoint",
+               "repro_torch.checkpoint.checkpoint", "repro_torch.launch",
+               "repro_torch.launch.quantize")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -65,6 +71,9 @@ def _check_defaults_to_cuda(monkeypatch, arch):
         model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_cache(2, 8, kv_quant=True)
+    from repro_torch.launch import quantize
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize.main(["--arch", arch, "--smoke", "--iters", "0"])
 
 
 def test_unported_architectures_raise():
