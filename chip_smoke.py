@@ -51,13 +51,24 @@ last line is not printed):
 4. Path     — smollm-135m at full width in bfloat16, weights from
               torch.Generator seed 0: export-only FlexRound PTQ (W4 body, W8
               layers 0 and 29, A8, per-channel) on 8 x 64 calibration tokens,
-              then the serving engine (4 slots, max_len 32, int8 KV cache)
-              answers 8 requests of 16 new tokens. The launch counters are
-              zeroed just before and read just after; K1, K2 and K3 must
-              have launched, K1 and K2 each in both regimes (decode from
-              the decode steps, mma from prefill or the export). One
-              request is re-run with the plain versions
-              (backend "torch") and must agree within bfloat16 tolerance.
+              then the serving engine (4 slots, max_len 32, buckets
+              8/16/32, prefill group 2, int8 KV cache), which captures one
+              CUDA graph per bucket and one for decode, answers 8 requests
+              of 16 new tokens. The launch counters are zeroed just before
+              and read just after (the graphs' replays counted by their
+              capture-time tallies, warm-up and capture left out); K1, K2
+              and K3 must have launched, K1 and K2 each in both regimes
+              (decode from the decode steps, mma from prefill or the
+              export). compile_count must be 4 after the build and after
+              serving. Then the same requests through the eager engine
+              (graphs=False), in a counter window of its own: identical
+              greedy tokens and identical launches per kernel and regime.
+              Both report decode ms per step, prefill us per bucket, the
+              capture seconds and the device memory the build took; 20
+              decode steps of each are traced with obs.profiler (device-
+              busy share, top 5 device ops). One request is re-run with
+              the plain versions (backend "torch") and must agree within
+              bfloat16 tolerance.
    Trained  — the same model and weights through the PTQ launcher, in
               process: ``repro_torch.launch.quantize.main`` with the path's
               recipe (W4 body, W8 layers 0 and 29, A8, per-channel), setting
@@ -66,11 +77,14 @@ last line is not printed):
               launcher's), TRAIN_ITERS = 100 iterations (not the default
               200, to keep the phase near a minute), per-block checkpoints
               (--resume-dir), the export (--out) and the scheduler's serve
-              run (--serve: 8 requests x 16 new tokens, 4 slots, int8 KV).
-              Counters zeroed just before the call, read where the export
-              hands over to serving (the launcher's serve_engine_run is
-              wrapped) and just after: the reconstruction's deploy forwards
-              must launch K1 and K3, serving K1 and K2. Reports the
+              run (--serve: 8 requests x 16 new tokens, 4 slots, int8 KV,
+              CUDA graphs). Counters zeroed just before the call, read where
+              the export hands over to serving (the launcher's
+              serve_engine_run is wrapped) and just after: the
+              reconstruction's deploy forwards must launch K1 and K3,
+              serving K1 and K2, exactly what phase 4's graphed serving
+              launched (warm-up and capture are not counted), with
+              compile_count 4. Reports the
               launcher's seconds, seconds and steps/s per block and in
               total, err_before/err_after per block; fails on a non-finite
               error, or unless the errors' sum after training is below both
@@ -90,7 +104,8 @@ last line is not printed):
               layer 0 (its own counter window; bit-exact against the plain
               version); then export-only PTQ (W4 body, W8 layers 0 and 3,
               A8, per-channel, mse observer) on 8 x 64 calibration tokens
-              and the same serving run as phase 4. K5 must launch packed
+              and the same serving runs as phase 4 (graphed, eager,
+              profiled). K5 must launch packed
               and unpacked in the export and in serving, in the mma regime
               in the export and the decode regime in serving, and K1, K2
               and K3 must launch, K1 and K2 in both regimes. One MoE FFN
@@ -755,18 +770,36 @@ def forced_logits(torch, model, params, ctx, prompt, generated, max_len):
     return torch.stack(out)
 
 
-def run_engine(torch, np, model, qparams, ctx):
+def serve_requests(np, vocab):
+    """8 requests of 4-15 prompt tokens x 16 new tokens (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    return [(i, rng.integers(0, vocab, size=int(rng.integers(4, 16))
+                             ).astype(np.int64), 16) for i in range(8)]
+
+
+def run_engine(torch, np, model, qparams, ctx, graphs=True):
     """The serving run of both paths: 4 slots, max_len 32, prefill group 2,
-    int8 KV; 8 requests of 4-15 prompt tokens x 16 new tokens. Returns
-    (requests, {rid: tokens}, stats)."""
+    int8 KV; the 8 requests of ``serve_requests``, through CUDA graphs
+    (``graphs``) or the eager engine. Returns (requests, {rid: tokens},
+    stats, engine); the stats hold the build's seconds, capture seconds and
+    device memory (allocated and reserved, measured with empty caches
+    around the engine's construction: the graph pool and the slot state)."""
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     vocab = model.cfg.vocab
     econf = EngineConfig(slots=4, max_len=32, prefill_group=2, kv_quant=True)
-    engine = ServeEngine(model, qparams, ctx, econf)
-    rng = np.random.default_rng(0)
-    max_new = 16
-    requests = [(i, rng.integers(0, vocab, size=int(rng.integers(4, 16))
-                                 ).astype(np.int64), max_new) for i in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engine = ServeEngine(model, qparams, ctx, econf, graphs=graphs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    build_mem = {"allocated": torch.cuda.memory_allocated() - alloc0,
+                 "reserved": torch.cuda.memory_reserved() - res0}
+    compiled = engine.compile_count
+    requests = serve_requests(np, vocab)
+    max_new = requests[0][2]
     t0 = time.perf_counter()
     outs, prefill_s, decode_s = serve_all(engine, requests)
     torch.cuda.synchronize()
@@ -776,17 +809,162 @@ def run_engine(torch, np, model, qparams, ctx):
             for v in outs.values()):
         fail(f"serve: bad outputs {outs}")
     st = engine.stats()
+    want = len(engine.buckets) + 1 if graphs else 0
+    if not compiled == engine.compile_count == want:
+        fail(f"serve: compile_count {compiled} after the build, "
+             f"{engine.compile_count} after serving, {want} expected")
     n_tok = sum(len(v) for v in outs.values())
-    stats = {"serve_s": serve_s, "tokens_per_s": n_tok / serve_s,
+    mode = "graphed" if graphs else "eager"
+    stats = {"mode": mode, "serve_s": serve_s, "tokens_per_s": n_tok / serve_s,
              "decode_steps": st["decode_steps"], "decode_s": decode_s,
              "decode_ms_per_step": 1e3 * decode_s / st["decode_steps"],
              "prefill_s": prefill_s, "prefill_calls": st["prefill_calls"],
+             "prefill_us": st["prefill_us"], "compile_count": compiled,
+             "compile_us": st["compile_us"],
+             "capture_s": sum(st["compile_us"].values()) / 1e6,
+             "build_s": build_s, "build_memory_bytes": build_mem,
+             "build_launches": st["build_launches"],
              "hbm_per_slot_bytes": st["hbm_per_slot_bytes"]}
-    log(f"serve: 8 requests x {max_new} tokens on 4 slots in {serve_s:.3f}s -> "
-        f"{stats['tokens_per_s']:.1f} tokens/s ({st['decode_steps']} decode "
-        f"steps, {stats['decode_ms_per_step']:.2f} ms each; prefill calls "
-        f"{st['prefill_calls']}, {prefill_s:.3f}s)")
-    return requests, outs, stats
+    pf = " ".join(f"b{b}={h['p50']:.0f}us(n={int(h['count'])})"
+                  for b, h in sorted(st["prefill_us"].items()))
+    log(f"serve [{mode}]: 8 requests x {max_new} tokens on 4 slots in "
+        f"{serve_s:.3f}s -> {stats['tokens_per_s']:.1f} tokens/s "
+        f"({st['decode_steps']} decode steps, "
+        f"{stats['decode_ms_per_step']:.3f} ms each; prefill p50 {pf}, "
+        f"{prefill_s:.3f}s)")
+    log(f"serve [{mode}]: build {build_s:.3f}s, compile_count {compiled}, "
+        f"capture {stats['capture_s']:.3f}s "
+        f"({ {k: round(v) for k, v in st['compile_us'].items()} } us), "
+        f"device memory allocated {build_mem['allocated']} B, reserved "
+        f"{build_mem['reserved']} B (graph pool and slot state)")
+    return requests, outs, stats, engine
+
+
+def compare_eager(torch, np, model, qparams, ctx, outs, serve_counts):
+    """The same requests through the eager engine (``graphs=False``), in a
+    counter window of its own: the greedy tokens and the launches per
+    kernel and regime must equal the graphed run's."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    _, eager_outs, stats, engine = run_engine(torch, np, model, qparams, ctx,
+                                              graphs=False)
+    after = ops.launch_counts()
+    eager_counts = {k: after[k] - before[k] for k in after}
+    same = sum(eager_outs[r] == outs[r] for r in outs)
+    log(f"graphed vs eager: greedy tokens identical for {same}/{len(outs)} "
+        f"requests; launches equal: {eager_counts == serve_counts}")
+    if same != len(outs):
+        fail(f"graphed and eager engines disagree: {outs} vs {eager_outs}")
+    if eager_counts != serve_counts:
+        fail(f"graphed launches {serve_counts} differ from eager "
+             f"{eager_counts}")
+    return stats, engine
+
+
+def profile_decode(torch, np, engine, tag, steps=20):
+    """``steps`` decode steps of 4 active slots traced with obs.profiler
+    (after two untraced ones): the device-busy share of the window (the
+    union of kernel, memcpy and memset intervals over the wall time from
+    the first step's annotation to the last one's end), and the device ops
+    with the most time in it. Returns None for the share when the trace
+    holds no device activity. Tracing slows each step, so a graphed engine
+    also has its decode graph replayed ``steps`` times back to back, the
+    slots drained, between CUDA events: the device's span of one step
+    without the host's replay, sync and bookkeeping, and without the
+    profiler."""
+    from repro_torch.obs import profiler
+    vocab = engine.model.cfg.vocab
+    rng = np.random.default_rng(1)
+    reqs = [(100 + i, rng.integers(0, vocab, 6).astype(np.int64), steps + 4)
+            for i in range(4)]
+    for i in range(0, 4, 2):
+        engine.admit(reqs[i:i + 2])
+    engine.step()
+    engine.step()
+    d = RUNS_DIR / f"profile_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    with profiler.trace(str(d)):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        wall_s = time.perf_counter() - t0
+    while engine.active:
+        engine.step()
+    engine.drain_finished()
+    graph_ms = None
+    graph = engine._graphs.get("decode", (None,))[0]
+    if graph is not None:  # every slot inactive: positions stay in range
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        graph_ms = start.elapsed_time(end) / steps
+    files = sorted(d.glob("*.json"))
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    shutil.rmtree(d, ignore_errors=True)
+    marks = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == "serve.decode_step"]
+    lo = min(e["ts"] for e in marks)
+    hi = max(e["ts"] + e["dur"] for e in marks)
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        if b > a:
+            spans.append((a, b))
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + (b - a)
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window_us = hi - lo
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    res = {"steps": len(marks), "wall_ms_per_step": 1e3 * wall_s / steps,
+           "graph_ms_per_step": graph_ms,
+           "window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / window_us if spans else None,
+           "device_ops": len(spans),
+           "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
+    if not spans:
+        log(f"profile [{tag}]: {len(marks)} decode steps traced, no device "
+            "activity in the trace: device-busy share not measured")
+        return res
+    log(f"profile [{tag}]: {len(marks)} decode steps, window "
+        f"{res['window_ms']:.3f} ms, device busy {res['device_busy_ms']:.3f} "
+        f"ms ({100 * res['device_busy_share']:.1f}%), {len(spans)} device "
+        f"ops, {res['wall_ms_per_step']:.3f} ms per traced step; decode "
+        f"graph's device span per step "
+        f"{'-' if graph_ms is None else f'{graph_ms:.3f} ms'}; top 5: " + "; ".join(f"{t['name'][:60]} {t['ms']:.3f} ms"
+                                    for t in res["top5"]))
+    return res
+
+
+def serve_phase(torch, np, model, qparams, ctx, export_counts, tag):
+    """The main path's serving run (graphed) with the counters running,
+    then, after the main path's counters are read, the eager comparison
+    and the two profiled decode windows. Returns (counts at the end of the
+    main path, requests, outputs, stats)."""
+    from repro_torch.kernels import ops
+    requests, outs, stats, engine = run_engine(torch, np, model, qparams, ctx)
+    counts = ops.launch_counts()  # the main path's run ends here
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    log(f"serve launches {serve_counts}; warm-up and capture (not counted) "
+        f"{stats['build_launches']}")
+    eager, eager_engine = compare_eager(torch, np, model, qparams, ctx, outs,
+                                        serve_counts)
+    stats = dict(stats, serve_launches=serve_counts, eager=eager)
+    stats["profile"] = {"graphed": profile_decode(torch, np, engine,
+                                                  f"{tag}_graphed"),
+                        "eager": profile_decode(torch, np, eager_engine,
+                                                f"{tag}_eager")}
+    return counts, requests, outs, stats
 
 
 def export(torch, model, params, calib, recipe, w8_layers):
@@ -895,10 +1073,9 @@ def path_phase(torch, np):
         fail(f"export pass did not launch K1 and K3: {export_counts}")
     qparams = dict(params, layers=list(fin))
     ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
-    requests, outs, stats = run_engine(torch, np, model, qparams, ctx)
-    counts = ops.launch_counts()  # the main path's run ends here
-    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
-    log(f"serve launches {serve_counts}")
+    counts, requests, outs, stats = serve_phase(
+        torch, np, model, qparams, ctx, export_counts, "smollm")
+    serve_counts = stats["serve_launches"]
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving did not launch K1 and K2: {serve_counts}")
     require_regimes(counts, "the smollm path")
@@ -935,14 +1112,17 @@ def launcher_argv(iters: int):
             "--seq", "64"]
 
 
-def trained_phase(torch, np, export_only_errs):
+def trained_phase(torch, np, export_only_errs, path_serve_counts):
     """smollm-135m through the PTQ launcher, in process:
     ``repro_torch.launch.quantize.main`` with ``launcher_argv(TRAIN_ITERS)``,
     per-block checkpoints (``--resume-dir``), the export (``--out``) and the
     scheduler's serve run (``--serve``: 8 requests x 16 new tokens on 4
-    slots, int8 KV). The launch counters are zeroed before the call; the
-    launcher's ``serve_engine_run`` is wrapped to read them where the export
-    ends and serving begins."""
+    slots, int8 KV, through the graphed engine). The launch counters are
+    zeroed before the call; the launcher's ``serve_engine_run`` is wrapped
+    to read them where the export ends and serving begins. The engine keeps
+    its warm-up and capture out of the counters, so serving must launch
+    what the export-only path's graphed serving run did, kernel by kernel
+    and regime by regime (the same requests at the same shapes)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import quantize as launcher
 
@@ -1019,15 +1199,25 @@ def trained_phase(torch, np, export_only_errs):
              "decode_ms_per_step": rq["decode_step_us"]["mean"] / 1e3,
              "prefill_us": st["prefill_us"], "prefill_calls": st["prefill_calls"],
              "ttft_us": rq["ttft_us"], "queue_wait_us": rq["queue_wait_us"],
-             "hbm_per_slot_bytes": st["hbm_per_slot_bytes"]}
+             "hbm_per_slot_bytes": st["hbm_per_slot_bytes"],
+             "compile_count": st["compile_count"],
+             "compile_us": st["compile_us"],
+             "build_launches": st["build_launches"]}
     log(f"trained serve (scheduler): {n_tok} tokens in {served['seconds']:.3f}s"
         f" -> {stats['tokens_per_s']:.1f} tokens/s, {st['decode_steps']} "
         f"decode steps of {stats['decode_ms_per_step']:.2f} ms (mean), ttft "
         f"p50 {rq['ttft_us']['p50'] / 1e3:.2f} ms")
-    log(f"trained serve launches {serve_counts}")
+    log(f"trained serve launches {serve_counts}; compile_count "
+        f"{st['compile_count']}, compile_us "
+        f"{ {k: round(v) for k, v in st['compile_us'].items()} }; warm-up and "
+        f"capture (not counted) {st['build_launches']}")
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving the trained weights did not launch K1 and K2: "
              f"{serve_counts}")
+    if st["compile_count"] != 4 or serve_counts != path_serve_counts:
+        fail(f"trained serve: compile_count {st['compile_count']}, launches "
+             f"{serve_counts} against the export-only path's graphed "
+             f"serving {path_serve_counts}")
     rc = recheck_request0(torch, res.model, res.qparams, res.recipe,
                           res.astates, requests, outs)
     rc.pop("routes")
@@ -1298,10 +1488,9 @@ def moe_path_phase(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
-    requests, outs, stats = run_engine(torch, np, model, qparams, ctx)
-    counts = ops.launch_counts()  # the MoE main path's run ends here
-    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
-    log(f"serve launches {serve_counts}")
+    counts, requests, outs, stats = serve_phase(
+        torch, np, model, qparams, ctx, export_counts, "llama4")
+    serve_counts = stats["serve_launches"]
     need = {"export: K5 packed": export_counts["dequant_matmul_batched[packed]"],
             "export: K5 unpacked":
                 export_counts["dequant_matmul_batched[unpacked]"],
@@ -1403,7 +1592,8 @@ def main() -> int:
     log(f"smollm path phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    trained_counts, trained = trained_phase(torch, np, path["err"])
+    trained_counts, trained = trained_phase(torch, np, path["err"],
+                                            path["serve_launches"])
     log(f"smollm trained phase (launcher): {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     preemption = preemption_phase(torch, np)

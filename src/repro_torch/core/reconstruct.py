@@ -52,6 +52,7 @@ from repro_torch.core import paths as pth
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.qtensor import dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
+from repro_torch.obs import profiler
 from repro_torch.obs.telemetry import TELEMETRY, Stopwatch
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 
@@ -313,7 +314,8 @@ def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
     mses = torch.zeros((recipe.iters,), dtype=torch.float32, device=dev)
     sw = Stopwatch()
     with TELEMETRY.span("recon.chunk", block=block.name, start=0,
-                        steps=recipe.iters) as sp:
+                        steps=recipe.iters) as sp, \
+            profiler.annotate("recon.chunk", 0):
         for it in range(recipe.iters):
             if idx is None:
                 xb, yb, wb = x_q, y_fp, sample_weight

@@ -17,11 +17,15 @@ dim is dequantized, ``dequantize-fallback``). ``launch_counts`` and
 their forms: the regime each dequant-matmul took (``dequant_matmul_w4[decode]``,
 ``[mma]``, ``[fp32]``, the same for ``dequant_matmul_w8`` and
 ``dequant_matmul_batched``) and K5's codes
-(``dequant_matmul_batched[packed]``, ``[unpacked]``).
+(``dequant_matmul_batched[packed]``, ``[unpacked]``). The counters count
+Python calls, and a CUDA graph's replay makes none: ``set_aside`` records
+the launches of a region (a graph's capture) and takes them out of the
+counters, and ``add_launches`` adds such a tally back at every replay.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -54,6 +58,34 @@ def reset_launch_counts() -> None:
         k.launches = 0
         for form in getattr(k, "forms", {}):
             k.forms[form] = 0
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a tally keyed as ``launch_counts()`` is to the counters: what a
+    CUDA graph's replay launched, recorded at its capture."""
+    by_name = {k.__name__: k for k in KERNELS}
+    for key, n in tally.items():
+        name, _, form = key.partition("[")
+        if form:
+            by_name[name].forms[form[:-1]] += n
+        else:
+            by_name[name].launches += n
+
+
+@contextlib.contextmanager
+def set_aside() -> Iterator[Dict[str, int]]:
+    """The launches made inside the block, as a tally keyed as
+    ``launch_counts()`` is (filled on exit), taken out of the counters: a
+    graph's warm-up and capture launch nothing that serving counts."""
+    before = launch_counts()
+    tally: Dict[str, int] = {}
+    try:
+        yield tally
+    finally:
+        after = launch_counts()
+        tally.update({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        add_launches({k: -n for k, n in tally.items()})
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:

@@ -20,11 +20,18 @@ resumes at the first unfinished block and finishes with the results of a run
 without a break, bit for bit; resuming under different rules fails loudly
 (per-site plans are recorded in the checkpoint).
 
+``--profile`` writes a perfetto-loadable Chrome trace of the whole run
+(``torch.profiler``, CPU and CUDA activity; each recon chunk, serve prefill
+and decode step annotated) into ``<--telemetry DIR or $TMPDIR/repro_profile>
+/profile``. ``--serve`` serves through CUDA graphs on the card (one per
+prefill bucket and one for decode) and runs the same bodies directly on the
+CPU.
+
 Flags whose subsystem is not ported yet exit with an error naming the
 ROADMAP item: ``--mesh``/``--multi-pod`` (item 11), ``--auto-bits``/
-``--budget``/``--alloc-objective`` (item 10), ``--analyze``/
-``--analyze-mem`` (item 15) and ``--profile`` (item 12). ``--scan-chunk``
-takes only its default: the eager loop has no scan chunks.
+``--budget``/``--alloc-objective`` (item 10) and ``--analyze``/
+``--analyze-mem`` (item 15). ``--scan-chunk`` takes only its default: the
+eager loop has no scan chunks.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.core.reconstruct import quantize_blocks, site_plans
 from repro_torch.data import CalibrationSet, SyntheticTokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import build_model
+from repro_torch.obs import profiler
 from repro_torch.obs.sink import JsonlSink, RunManifest, current_manifest
 from repro_torch.obs.telemetry import TELEMETRY, Stopwatch, block_on
 from repro_torch.serve.engine import EngineConfig, ServeEngine
@@ -133,7 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported yet (ROADMAP Queue 1 item 11)")
     ap.add_argument("--profile", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="wrap the run in torch.profiler, writing a "
+                         "perfetto-loadable Chrome trace under --telemetry "
+                         "DIR (or $TMPDIR/repro_profile)/profile")
     return ap
 
 
@@ -149,7 +159,6 @@ def _reject_unported(args) -> None:
          10),
         (args.analyze or args.analyze_mem, "--analyze/--analyze-mem",
          "the static checks", 15),
-        (args.profile, "--profile", "the profiler wiring", 12),
     )
     for given, flags, what, item in waits:
         if given:
@@ -219,12 +228,17 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
         TELEMETRY.enable(sink=JsonlSink(events), manifest=manifest)
         print(f"telemetry: streaming to {events} "
               f"(git {manifest.git_sha}, schema {manifest.schema_version})")
+    profiling = args.profile and profiler.start(os.path.join(
+        args.telemetry or os.path.join(tempfile.gettempdir(), "repro_profile"),
+        "profile"))
     try:
         result = _quantize_and_serve(args, cfg, model, params, recipe,
                                      calib_tokens, dev)
         if TELEMETRY.enabled:
             TELEMETRY.emit({"kind": "snapshot", **TELEMETRY.snapshot()})
     finally:
+        if profiling:
+            print(f"profile: Chrome trace written to {profiler.stop()}")
         if args.telemetry:
             TELEMETRY.disable()
     return result
@@ -363,7 +377,9 @@ def serve_engine_run(model, qparams, astates, recipe, cfg, *,
           f"{n_tok / dt:.1f} tokens/s, "
           f"hbm_per_slot {st['hbm_per_slot_MiB']:.4f} MiB, "
           f"compile_count {st['compile_count']} "
-          f"(buckets {st['buckets']}), prefill {pf}")
+          f"(buckets {st['buckets']}), compile_us "
+          f"{ {k: round(v) for k, v in st['compile_us'].items()} }, "
+          f"prefill {pf}")
     print(f"serve requests: ttft p50={rq['ttft_us']['p50']:.0f}us "
           f"p95={rq['ttft_us']['p95']:.0f}us, "
           f"queue_wait p50={rq['queue_wait_us']['p50']:.0f}us "

@@ -6,9 +6,10 @@
                      into checkpoint meta, exports and serve stats)
   serve_metrics.py   per-request lifecycle metrics: queue wait, TTFT,
                      per-bucket prefill histograms, occupancy/backlog
-
-Not ported yet (ROADMAP Queue 1 item 12): ``compile_events`` (it would count
-CUDA-graph captures) and ``profiler`` (a ``torch.profiler`` wrapper).
+  compile_events.py  the serving engine's CUDA-graph captures, attributed to
+                     the telemetry span open when each ran
+  profiler.py        ``--profile``: one process-wide ``torch.profiler``
+                     profile written as a Chrome trace, and ``annotate``
 """
 from repro_torch.obs.sink import (  # noqa: F401
     SCHEMA_VERSION,

@@ -22,6 +22,7 @@ quantize the same inputs. Tolerances:
 - ``--serve``: the greedy tokens of the port's scheduler run equal the
   reference scheduler's on the ``--iters 0`` export.
 """
+import json
 import os
 import subprocess
 import sys
@@ -180,13 +181,43 @@ def test_serve_tokens_equal_the_reference_scheduler(runs):
     (["--mesh", "debug"], "item 11"), (["--multi-pod"], "item 11"),
     (["--auto-bits", "4.5"], "item 10"), (["--budget", "bytes"], "item 10"),
     (["--alloc-objective", "mse"], "item 10"), (["--analyze"], "item 15"),
-    (["--analyze-mem"], "item 15"), (["--profile"], "item 12"),
+    (["--analyze-mem"], "item 15"),
     (["--scan-chunk", "50"], "no scan chunks"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit) as e:
         quantize.main(SMOKE + ["--iters", "0", "--device", "cpu"] + flags)
     assert isinstance(e.value.code, str) and item in e.value.code
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """``--profile`` (it used to exit naming ROADMAP item 12) writes a Chrome
+    trace under ``--telemetry DIR``/profile that holds the recon chunks and
+    the serve steps, and changes nothing the run computes."""
+    argv = SMOKE + ["--w-bits", "4", "--iters", "2", "--device", "cpu",
+                    "--serve", "--serve-requests", "3", "--serve-max-new", "4"]
+    plain = quantize.main(argv + ["--out", str(tmp_path / "plain")])
+    tel = tmp_path / "tel"
+    prof = quantize.main(argv + ["--out", str(tmp_path / "prof"), "--profile",
+                                 "--telemetry", str(tel)])
+    files = sorted((tel / "profile").glob("*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("recon.chunk") == 2  # one per block of the smoke model
+    assert names.count("serve.decode_step") == prof.serve["stats"][
+        "decode_steps"] > 0
+    assert names.count("serve.prefill") == sum(
+        prof.serve["stats"]["prefill_calls"].values())
+    assert prof.serve["outputs"] == plain.serve["outputs"]
+    for a, b in zip(prof.reports, plain.reports):
+        assert (a.err_before, a.err_after) == (b.err_before, b.err_after)
+        np.testing.assert_array_equal(a.loss_curve, b.loss_curve)
+    ta = load_pytree(str(tmp_path / "prof"), device="cpu")[0]
+    tb = load_pytree(str(tmp_path / "plain"), device="cpu")[0]
+    for la, lb in zip(ta["params"]["layers"], tb["params"]["layers"]):
+        for (na, qa), (nb, qb) in zip(_qtensors(la), _qtensors(lb)):
+            assert na == nb and torch.equal(qa.codes, qb.codes)
 
 
 def test_cli_choices_come_from_registry():

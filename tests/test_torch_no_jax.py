@@ -32,7 +32,8 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.serve.scheduler", "repro_torch.data",
                "repro_torch.data.pipeline", "repro_torch.checkpoint",
                "repro_torch.checkpoint.checkpoint", "repro_torch.launch",
-               "repro_torch.launch.quantize")
+               "repro_torch.launch.quantize", "repro_torch.obs.profiler",
+               "repro_torch.obs.compile_events")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
