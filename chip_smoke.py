@@ -69,6 +69,17 @@ last line is not printed):
               busy share, top 5 device ops). One request is re-run with
               the plain versions (backend "torch") and must agree within
               bfloat16 tolerance.
+   Recon graphs — the captured Adam step against the same body run call
+              by call: blocks 0 (W8) and 1 (W4, fed block 0's deployed
+              output) with the trained phase's weights, calibration set
+              and recipe, reconstructed through quantize_blocks with
+              graphs=False and then graphed from the same seed; curves,
+              errors, activation states and exported codes must be equal
+              bit for bit, with two engines built and two step captures
+              on the graphed side. Then 20 replayed steps of block 1 are
+              traced with obs.profiler (device-busy share of the
+              recon.chunk window, device ops per step, top 5) and its
+              graph's device time per step is taken with CUDA events.
    Trained  — the same model and weights through the PTQ launcher, in
               process: ``repro_torch.launch.quantize.main`` with the path's
               recipe (W4 body, W8 layers 0 and 29, A8, per-channel), setting
@@ -84,9 +95,13 @@ last line is not printed):
               reconstruction's deploy forwards must launch K1 and K3,
               serving K1 and K2, exactly what phase 4's graphed serving
               launched (warm-up and capture are not counted), with
-              compile_count 4. Reports the
+              compile_count 4. The reconstruction replays captured
+              steps: engine_stats() must show 2 engines built and 2 step
+              captures (the W8 layers 0/29, the W4 body), every block's
+              report engine "graph". Reports the
               launcher's seconds, seconds and steps/s per block and in
-              total, err_before/err_after per block; fails on a non-finite
+              total, the engine's counters and the captures' seconds,
+              err_before/err_after per block; fails on a non-finite
               error, or unless the errors' sum after training is below both
               its own sum before and the export-only run's sum. Request 0
               is re-run with the plain versions (5e-2 relative L2).
@@ -94,7 +109,8 @@ last line is not printed):
               run without a break (export A); the same command in a
               subprocess with --resume-dir D, sent SIGKILL once D's
               checkpoint records next_block >= PREEMPT_AT = 10; the same
-              command in process, resuming from D (export B). Every tensor
+              command in process, resuming from D (export B). All three
+              replay captured steps. Every tensor
               of B must equal A's bit for bit, and every block's err_before
               and err_after; reports the seconds of the three runs.
 5. MoE path — llama4-scout-17b-a16e at full width (d_model 5120, 16
@@ -149,9 +165,9 @@ LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 LLAMA4_EXPERTS = ((5120, 8192), (8192, 5120))
 LLAMA4_E = 16
 LLAMA4_LAYERS = 4  # of 48: the bf16 weights of 4 layers take 21.8 GB
-# the launcher's default is 200 (repro/launch/quantize.py); 200 took 126 s
-# on an H100 (eager steps, host-bound, PERF.md), past the ~120 s this
-# phase may take, so the run takes 100
+# the launcher's default is 200 (repro/launch/quantize.py); the phase has
+# run 100 since the steps were eager (200 took 126 s on an H100, PERF.md),
+# and keeps 100 so that its numbers compare with those runs
 TRAIN_ITERS = 100
 # the preemption phase: iterations per block, and the block after whose
 # checkpoint the launcher subprocess is killed
@@ -863,11 +879,10 @@ def compare_eager(torch, np, model, qparams, ctx, outs, serve_counts):
 
 def profile_decode(torch, np, engine, tag, steps=20):
     """``steps`` decode steps of 4 active slots traced with obs.profiler
-    (after two untraced ones): the device-busy share of the window (the
-    union of kernel, memcpy and memset intervals over the wall time from
-    the first step's annotation to the last one's end), and the device ops
-    with the most time in it. Returns None for the share when the trace
-    holds no device activity. Tracing slows each step, so a graphed engine
+    (after two untraced ones): the device-busy share of the steps' window
+    and the device ops with the most time in it (``device_window``; None
+    for the share when the trace holds no device activity). Tracing slows
+    each step, so a graphed engine
     also has its decode graph replayed ``steps`` times back to back, the
     slots drained, between CUDA events: the device's span of one step
     without the host's replay, sync and bookkeeping, and without the
@@ -903,11 +918,35 @@ def profile_decode(torch, np, engine, tag, steps=20):
         end.record()
         end.synchronize()
         graph_ms = start.elapsed_time(end) / steps
-    files = sorted(d.glob("*.json"))
+    win = device_window(d, "serve.decode_step")
+    res = {"steps": win.pop("marks"), "wall_ms_per_step": 1e3 * wall_s / steps,
+           "graph_ms_per_step": graph_ms, **win}
+    if res["device_busy_share"] is None:
+        log(f"profile [{tag}]: {res['steps']} decode steps traced, no device "
+            "activity in the trace: device-busy share not measured")
+        return res
+    log(f"profile [{tag}]: {res['steps']} decode steps, window "
+        f"{res['window_ms']:.3f} ms, device busy {res['device_busy_ms']:.3f} "
+        f"ms ({100 * res['device_busy_share']:.1f}%), {res['device_ops']} "
+        f"device ops, {res['wall_ms_per_step']:.3f} ms per traced step; "
+        f"decode graph's device span per step "
+        f"{'-' if graph_ms is None else f'{graph_ms:.3f} ms'}; top 5: "
+        + "; ".join(f"{t['name'][:60]} {t['ms']:.3f} ms" for t in res["top5"]))
+    return res
+
+
+def device_window(trace_dir, mark):
+    """Read (and delete) the Chrome trace in ``trace_dir``: the device
+    activity inside the window from the first ``mark`` annotation's start
+    to the last one's end. ``device_busy_share`` is the union of kernel,
+    memcpy and memset intervals over the window's wall time (None when the
+    trace holds no device activity); ``top5`` the device ops with the most
+    time in it."""
+    files = sorted(trace_dir.glob("*.json"))
     events = json.loads(files[-1].read_text())["traceEvents"]
-    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(trace_dir, ignore_errors=True)
     marks = [e for e in events if e.get("cat") == "user_annotation"
-             and e.get("name") == "serve.decode_step"]
+             and e.get("name") == mark]
     lo = min(e["ts"] for e in marks)
     hi = max(e["ts"] + e["dur"] for e in marks)
     spans, by_name = [], {}
@@ -926,24 +965,11 @@ def profile_decode(torch, np, engine, tag, steps=20):
             end = b
     window_us = hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    res = {"steps": len(marks), "wall_ms_per_step": 1e3 * wall_s / steps,
-           "graph_ms_per_step": graph_ms,
-           "window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
-           "device_busy_share": busy / window_us if spans else None,
-           "device_ops": len(spans),
-           "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
-    if not spans:
-        log(f"profile [{tag}]: {len(marks)} decode steps traced, no device "
-            "activity in the trace: device-busy share not measured")
-        return res
-    log(f"profile [{tag}]: {len(marks)} decode steps, window "
-        f"{res['window_ms']:.3f} ms, device busy {res['device_busy_ms']:.3f} "
-        f"ms ({100 * res['device_busy_share']:.1f}%), {len(spans)} device "
-        f"ops, {res['wall_ms_per_step']:.3f} ms per traced step; decode "
-        f"graph's device span per step "
-        f"{'-' if graph_ms is None else f'{graph_ms:.3f} ms'}; top 5: " + "; ".join(f"{t['name'][:60]} {t['ms']:.3f} ms"
-                                    for t in res["top5"]))
-    return res
+    return {"marks": len(marks), "window_ms": window_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / window_us if spans else None,
+            "device_ops": len(spans),
+            "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
 
 
 def serve_phase(torch, np, model, qparams, ctx, export_counts, tag):
@@ -1112,6 +1138,125 @@ def launcher_argv(iters: int):
             "--seq", "64"]
 
 
+def _first_curve_diff(np, a, b):
+    """(report index, step) of the first loss or MSE entry that differs."""
+    for i, (p, q) in enumerate(zip(a, b)):
+        for x, y in ((p.loss_curve, q.loss_curve), (p.mse_curve, q.mse_curve)):
+            bad = np.flatnonzero(np.asarray(x) != np.asarray(y))
+            if len(bad):
+                return i, int(bad[0])
+    return None
+
+
+def recon_graph_phase(torch, np):
+    """The captured Adam step against the same body run call by call, and
+    a trace of it. With the launcher's weights, calibration set and recipe
+    (``launcher_argv(TRAIN_ITERS)``), blocks 0 (the W8 engine) and 1 (the
+    W4 engine; its input is block 0's deployed output) of smollm-135m are
+    reconstructed through ``quantize_blocks`` twice from the same seed:
+    ``graphs=False``, then graphed. Loss and MSE curves, errors, the
+    activation states and the exported codes, scales and zeros must be
+    equal bit for bit (the first differing step is reported if not). Then
+    block 1 at 20 iterations (its engine built and captured by an untraced
+    run) is traced with obs.profiler: the device-busy share of its
+    ``recon.chunk`` window (20 replays and the sync at their end) and the
+    top 5 device ops; and its graph is replayed 20 times between CUDA
+    events: the device time per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.data import CalibrationSet, SyntheticTokens
+    from repro_torch.launch import quantize as launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import compile_events, profiler
+
+    args = launcher.build_parser().parse_args(launcher_argv(TRAIN_ITERS))
+    recipe = launcher.build_recipe(args)
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    calib = torch.as_tensor(CalibrationSet.build(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=args.seq, seed=0), args.calib).tokens).to(DEV)
+    x0, blocks, _ = model.quant_blocks(params, calib)
+    runs, res = {}, {}
+    for graphs, tag in ((False, "eager"), (None, "graph")):
+        rc.reset_engine_stats()
+        n_caps = len(compile_events.capture_seconds("recon.step"))
+        t0 = time.perf_counter()
+        runs[tag] = rc.quantize_blocks(blocks[:2], recipe, x0, graphs=graphs)
+        torch.cuda.synchronize()
+        st = rc.engine_stats()
+        reps = runs[tag][2]
+        caps = compile_events.capture_seconds("recon.step")[n_caps:]
+        res[tag] = {"seconds": time.perf_counter() - t0,
+                    "steps_per_s": [r.steps_per_s for r in reps],
+                    "engine_stats": dataclasses.asdict(st),
+                    "capture_s": caps}
+        log(f"recon graphs [{tag}]: blocks 0-1 in {res[tag]['seconds']:.2f}s, "
+            "steps/s " + " ".join(f"{v:.1f}" for v in res[tag]["steps_per_s"])
+            + f"; step captures {len(caps)} "
+            f"({' '.join(f'{c:.3f}s' for c in caps)}), engines "
+            f"{st.engine_builds} built")
+        if st.engine_builds != 2 or st.step_compiles != len(caps) or \
+                len(caps) != (2 if graphs is None else 0) or \
+                any(r.engine != tag for r in reps):
+            fail(f"recon graphs [{tag}]: {st}, captures {caps}, engines "
+                 f"{[r.engine for r in reps]}")
+    (fe, ae, re_), (fg, ag, rg) = runs["eager"], runs["graph"]
+    diff = (_same_tree(torch, fe, fg, "finalized")
+            + _same_tree(torch, ae, ag, "astates"))
+    errs = [(r.err_before, r.err_after) for r in re_]
+    if [(r.err_before, r.err_after) for r in rg] != errs:
+        diff.append("errors")
+    step = _first_curve_diff(np, re_, rg)
+    log(f"recon graphs: graphed against graphs=False, blocks 0-1 x "
+        f"{recipe.iters} steps: {len(diff)} tensors differ, first curve "
+        f"difference {step}; errors {errs}")
+    if diff or step is not None:
+        fail(f"recon graphs: the replayed step differs from the eager one: "
+             f"{diff[:10]}, first curve difference (block, step) {step}")
+
+    # 20 replayed steps of block 1's engine (the W4 body's), the teacher
+    # stream as its input
+    with torch.no_grad():
+        x1 = blocks[0].apply(blocks[0].params, x0, QuantCtx(mode="fp"))
+        y1 = blocks[1].apply(blocks[1].params, x1, QuantCtx(mode="fp"))
+    steps = 20
+    r20 = dataclasses.replace(recipe, iters=steps)
+    rc.clear_engine_cache()
+    _, _, warm = rc.reconstruct_block(blocks[1], r20, x1, y1, chunk=steps)
+    eng = next(reversed(rc._ENGINE_CACHE.values()))
+    d = RUNS_DIR / "profile_recon"
+    shutil.rmtree(d, ignore_errors=True)
+    with profiler.trace(str(d)):
+        _, _, traced = rc.reconstruct_block(blocks[1], r20, x1, y1,
+                                            chunk=steps)
+    win = device_window(d, "recon.chunk")
+    eng.step_t.zero_()  # 20 more replays stay inside the tables
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        eng.graph.replay()
+    end.record()
+    end.synchronize()
+    graph_ms = start.elapsed_time(end) / steps
+    rc.clear_engine_cache()
+    prof = dict(win, steps=steps, graph_ms_per_step=graph_ms,
+                untraced_steps_per_s=warm.steps_per_s,
+                traced_steps_per_s=traced.steps_per_s)
+    share = win["device_busy_share"]
+    log(f"profile [recon step]: {steps} replayed steps of block 1, window "
+        f"{win['window_ms']:.3f} ms, device busy {win['device_busy_ms']:.3f} "
+        f"ms ({'not measured' if share is None else f'{100 * share:.1f}%'}), "
+        f"{win['device_ops']} device ops ({win['device_ops'] / steps:.0f} per "
+        f"step); the graph's device time per step {graph_ms:.3f} ms (CUDA "
+        f"events, 20 replays); steps/s untraced {warm.steps_per_s:.1f}, "
+        f"traced {traced.steps_per_s:.1f}; top 5: "
+        + "; ".join(f"{t['name'][:60]} {t['ms']:.3f} ms" for t in win["top5"]))
+    return dict(res, errors=errs, profile=prof)
+
+
 def trained_phase(torch, np, export_only_errs, path_serve_counts):
     """smollm-135m through the PTQ launcher, in process:
     ``repro_torch.launch.quantize.main`` with ``launcher_argv(TRAIN_ITERS)``,
@@ -1123,11 +1268,14 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     its warm-up and capture out of the counters, so serving must launch
     what the export-only path's graphed serving run did, kernel by kernel
     and regime by regime (the same requests at the same shapes)."""
+    from repro_torch.core import reconstruct as rc
     from repro_torch.kernels import ops
     from repro_torch.launch import quantize as launcher
+    from repro_torch.obs import compile_events
 
     marks = {}
     real_serve = launcher.serve_engine_run
+    n_caps = len(compile_events.capture_seconds("recon.step"))
 
     def serve_engine_run(*args, **kwargs):
         torch.cuda.synchronize()
@@ -1167,6 +1315,16 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     log(f"trained: launcher {launcher_s:.2f}s, {steps} steps, export (to the "
         f"serve run) {export_s:.2f}s, {loop_s:.2f}s in the Adam loops, "
         f"{steps / loop_s:.1f} steps/s, peak {peak} B")
+    st = rc.engine_stats()  # the launcher zeroed it before its run
+    caps = compile_events.capture_seconds("recon.step")[n_caps:]
+    engine = dict(dataclasses.asdict(st), compile_count=st.compile_count)
+    log(f"trained engine: {engine}; step captures "
+        f"{' '.join(f'{c:.3f}s' for c in caps)}")
+    if st.step_compiles != 2 or st.engine_builds != 2 or len(caps) != 2 or \
+            any(r.engine != "graph" for r in reports):
+        fail(f"trained: the launcher's reconstruction did not replay two "
+             f"captured steps (W8 layers 0/{n_layers - 1}, W4 body): {st}, "
+             f"captures {caps}, engines {[r.engine for r in reports]}")
     log("trained seconds/steps_per_s per block: " + " ".join(
         f"{r.seconds:.3f}/{r.steps_per_s:.1f}" for r in reports))
     log(f"trained export launches {export_counts}")
@@ -1236,6 +1394,7 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
                 "calib": [64, 64]},
         launcher_s=launcher_s, export_s=export_s, loop_s=loop_s, steps=steps,
         steps_per_s=steps / loop_s, max_memory_allocated=peak,
+        engine_stats=engine, step_capture_s=caps,
         err=errs, err_before_sum=before, err_after_sum=after,
         export_only_err_after_sum=baseline,
         blocks=[{"name": r.name, "seconds": r.seconds,
@@ -1344,6 +1503,9 @@ def preemption_phase(torch, np):
         f"({res_b.resumed_units} blocks from the checkpoint); exports differ "
         f"at {len(diff)} tensors, per-block errors at {len(bad)} blocks")
     n_layers = res_a.cfg.n_layers
+    engines = {r.engine for r in res_a.reports + res_b.reports}
+    if engines != {"graph"}:
+        fail(f"preemption: the runs did not replay captured steps: {engines}")
     if diff or bad or len(errs_a) != n_layers or len(errs_b) != n_layers:
         fail(f"preemption: the resumed export differs from the uninterrupted "
              f"one: tensors {diff[:10]}, blocks {bad}")
@@ -1592,6 +1754,11 @@ def main() -> int:
     log(f"smollm path phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     t0 = time.perf_counter()
+    recon_graphs = recon_graph_phase(torch, np)
+    log(f"smollm recon graphs phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     trained_counts, trained = trained_phase(torch, np, path["err"],
                                             path["serve_launches"])
     log(f"smollm trained phase (launcher): {time.perf_counter() - t0:.1f}s")
@@ -1637,7 +1804,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
-         "trained_path": trained, "preemption": preemption,
+         "recon_graphs": recon_graphs, "trained_path": trained,
+         "preemption": preemption,
          "moe_path": moe_path}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 import sys
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -85,15 +85,39 @@ def _beta(step: int, recipe):
     return float(beta), bool(f32(step) < warm)
 
 
+# (schedule fields, device) -> (β, warm-up) tables. Kept for the life of the
+# process (a few floats each): a captured step reads them by address.
+_TABLES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def beta_tables(recipe, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(iters,) float32 β and boolean warm-up tables on ``device``, entry
+    t from ``_beta(t, recipe)``."""
+    device = torch.device(device)
+    key = (recipe.iters, recipe.ada_warmup, recipe.ada_beta_start,
+           recipe.ada_beta_end, device)
+    got = _TABLES.get(key)
+    if got is None:
+        rows = [_beta(t, recipe) for t in range(recipe.iters)]
+        got = _TABLES[key] = (
+            torch.tensor([b for b, _ in rows], dtype=torch.float32,
+                         device=device),
+            torch.tensor([w for _, w in rows], dtype=torch.bool,
+                         device=device))
+    return got
+
+
 def loss_extra(state, qcfg, step, recipe) -> torch.Tensor:
     """Annealed rounding regularizer pushing h(V) to {0, 1}; ``step`` is
-    the host's step index."""
-    beta, warmup = _beta(int(step), recipe)
-    if warmup:  # the reference's where(): zero, and no gradient
-        return torch.zeros((), dtype=torch.float32, device=state["v"].device)
+    the step index as a (1,) int64 tensor on the state's device. β and the
+    warm-up flag are read from ``beta_tables`` on the device, and the
+    warm-up is the reference's ``where()``: zero, with zero gradient."""
+    beta_t, warm_t = beta_tables(recipe, state["v"].device)
+    beta = beta_t.index_select(0, step).reshape(())
+    warm = warm_t.index_select(0, step).reshape(())
     h = rectified_sigmoid(state["v"])
-    reg = torch.sum(1.0 - torch.abs(2.0 * h - 1.0) ** beta)
-    return recipe.ada_lambda * reg
+    reg = recipe.ada_lambda * torch.sum(1.0 - torch.abs(2.0 * h - 1.0) ** beta)
+    return torch.where(warm, torch.zeros_like(reg), reg)
 
 
 def trainable(state: Dict[str, torch.Tensor]) -> Dict[str, bool]:

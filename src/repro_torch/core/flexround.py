@@ -76,7 +76,7 @@ def apply(w: torch.Tensor, state: Dict[str, torch.Tensor],
 
 
 def loss_extra(state, qcfg, step, recipe) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.float32)
+    return torch.zeros((), dtype=torch.float32, device=state["s1"].device)
 
 
 def trainable(state: Dict[str, torch.Tensor]) -> Dict[str, bool]:

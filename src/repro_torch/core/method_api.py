@@ -7,7 +7,8 @@ QuantConfig):
     init(w, qcfg, key=None) -> state            dict of tensors
     apply(w, state, qcfg) -> w_hat              differentiable fake-quant
     codes(w, state, qcfg, ste=True) -> q        float integer codes (optional)
-    loss_extra(state, qcfg, step, recipe) -> r  regularizer (0 by default)
+    loss_extra(state, qcfg, step, recipe) -> r  regularizer (0 by default);
+                                                step: (1,) int64 tensor
     trainable(state) -> {leaf: bool}            which state leaves get grads
     project(state) -> state                     post-step feasibility clamp
     export(w, state, qcfg, dtype=...) -> QTensor  hard integer export
@@ -30,7 +31,8 @@ KINDS = ("weight", "activation")
 def _zero_loss_extra(state, qcfg, step, recipe):
     import torch
 
-    return torch.zeros((), dtype=torch.float32)
+    return torch.zeros((), dtype=torch.float32,
+                       device=next(iter(state.values())).device)
 
 
 @dataclasses.dataclass(frozen=True)

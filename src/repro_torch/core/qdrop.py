@@ -48,10 +48,17 @@ def fold_in(seed: int, data: int) -> int:
     return int.from_bytes(h, "little") & (2**63 - 1)
 
 
+def site_seed(seed: int, name: str) -> int:
+    """The seed of site ``name``'s stream in a run seeded ``seed``."""
+    return fold_in(seed, salt(name))
+
+
 class SiteStreams:
     """The QDrop draws of one reconstruction run: one ``torch.Generator``
-    per site on ``device``, seeded with ``fold_in(seed, salt(name))``, made
-    at the site's first draw and read on from there, step after step."""
+    per site on ``device``, seeded with ``site_seed(seed, name)``, made at
+    the site's first draw and read on from there, step after step. (The
+    reconstruction engine keeps one generator per site of its own, which a
+    CUDA graph replays, and re-seeds them the same way for every block.)"""
 
     def __init__(self, seed: int, device):
         self.seed, self.device = int(seed), torch.device(device)
@@ -61,6 +68,6 @@ class SiteStreams:
         gen = self._gens.get(name)
         if gen is None:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(fold_in(self.seed, salt(name)))
+            gen.manual_seed(site_seed(self.seed, name))
             self._gens[name] = gen
         return gen

@@ -10,20 +10,57 @@ For each block B (a transformer layer, or one linear for ``recon="layer"``):
     regularizer) with Adam, QDrop dropping activation quantization
     export every site to a QTensor; x_q <- B_deploy(x_q); x_fp <- y_fp
 
-The reference runs chunks of steps inside a jitted ``lax.scan``; here one
-step is an eager forward and backward (``torch.autograd`` on the state
-leaves; the block's weights take no gradient) followed by two Adam updates
-under ``no_grad``: the rounding states at ``AdamConfig(lr=1.0)`` with each
-site's ``plan.lr`` as the per-leaf ``lr_scale``, then the LSQ states at
-``recipe.lr_lsq``, each followed by its ``project``. Loss and MSE stay on
-the device in preallocated ``(iters,)`` tensors: the host reads them once
-per block, so no step waits on the device.
+**The engine.** One Adam step of a block is one body (``_Engine.step``):
+the recon forward and its backward (``torch.autograd`` on the state
+leaves; the block's weights take no gradient), the rounding states' Adam
+update at ``AdamConfig(lr=1.0)`` with each site's ``plan.lr`` as the
+per-leaf ``lr_scale``, then the LSQ states' at ``recipe.lr_lsq``, each
+followed by its ``project``. It reads and writes only static buffers that
+the engine owns: the block's params, the rounding and LSQ states and both
+Adam moments, ``x_q``, ``y_fp`` and the optional sample weights, the
+``(iters, bs)`` minibatch indices, a step counter on the device and the
+``(iters,)`` loss and MSE curves. The device step selects the minibatch
+row, Adam's bias corrections (``adam.bias_correction_tables``) and
+AdaRound's β (``adaround.beta_tables``), places the curves' entries and is
+advanced in the body, so a step neither reads the host nor waits on the
+device.
+
+**Shared engines.** Site names are rewritten to position tokens ``~s<i>``
+at the ctx boundary (``_RenameCtx``), which key the engine's state dicts,
+plans and QDrop streams, so structurally identical blocks share one
+engine. Its cache key is the reference's (the block's ``apply_key``; the
+canonical sites with their plans' cache keys; the recipe) plus what the
+buffers fix: the shapes and dtypes of params, states and streams, whether
+sample weights and minibatch indices are given, and the device. Models
+stamp the layers of one ``quant_blocks`` call with a shared ``apply_key``,
+so the 30 layers of smollm-135m under a W4 body with W8 first and last
+layers use two engines. Before each block ``_Engine.load`` copies the
+block's params, initial states and streams in, zeroes the moments, the
+counter and the curves, and seeds the engine's generators (one per
+canonical site, seeded ``qdrop.site_seed(seed, real site name)``: the
+draws of fresh ``qdrop.SiteStreams``). The step then runs ``recipe.iters``
+times; every ``chunk`` steps the host waits for the device (one
+``recon.chunk`` span and profiler annotation each); the states are copied
+out. ``quantize_blocks`` runs inside ``engine_scope()``, which releases the
+engines (and their graphs) built for its blocks when it returns.
+
+**CUDA graphs.** On a card the engine captures the step in a
+``torch.cuda.CUDAGraph`` at its first block: ``WARMUP_STEPS`` steps on a
+side stream (autograd and cuBLAS set up their workspaces), the block
+loaded again so the warm-up leaves no trace, the generators registered
+with the graph, one step captured in the graph's own memory pool; then it
+replays the graph. Each capture counts in ``engine_stats().step_compiles``
+and goes to ``obs.compile_events`` (attributed to the open ``recon.block``
+span). A failed capture or replay raises; nothing falls back to eager
+steps on its own. On the CPU the same body runs call by call.
+``graphs=False`` runs it call by call on a card too: it exists only as the
+eager side of a comparison (``chip_smoke.py``, the card tests).
 
 Random draws (the minibatch schedule and QDrop's masks) come from
 ``torch.Generator`` objects on the run's device, seeded from the block's
-seed; QDrop keeps one stream per site, keyed by the crc32 salt of the site
-name (``qdrop.SiteStreams``). A caller may pass its own draws instead
-(``Schedule``), which is how the parity tests replay JAX's.
+seed. A caller may pass its own draws instead (``Schedule``), which is how
+the parity tests replay JAX's: each step's given masks are handed to the
+body as its QDrop draws, so such a run is not captured.
 
 Per-block checkpoints (``quantize_blocks(checkpoint_dir=)``) resume a
 killed run at its first unfinished block with the streams, states, reports
@@ -32,16 +69,19 @@ equal that run's bit for bit. (The reference's resume pushes the saved
 streams through the finished blocks a second time and draws block 0's key
 for the first resumed block; ROADMAP Queue 3 records the fault, which the
 port does not copy.) With telemetry enabled each block opens a
-``recon.block`` span and its Adam loop a ``recon.chunk`` span, synced to the
-device at its end.
+``recon.block`` span and every chunk of its steps a ``recon.chunk`` span.
 
-Not ported here (see ROADMAP): the reference's compiled-engine cache and
-its counters (``engine_stats``, ``engine_scope``, ``probe_teacher``; the
-eager loop compiles nothing) and data parallelism over a mesh (``mesh=``).
+Not ported here (see ROADMAP): ``probe_teacher`` and
+``count_probe_compile``, whose only caller is the bit allocator (Queue 1
+item 10), and data parallelism over a mesh (``mesh=``, item 11). The
+teacher, the student pass and ``recon_error`` run eagerly once per block.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+from functools import partial
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -52,11 +92,15 @@ from repro_torch.core import paths as pth
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.qtensor import dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
-from repro_torch.obs import profiler
-from repro_torch.obs.telemetry import TELEMETRY, Stopwatch
-from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+from repro_torch.obs import compile_events, profiler
+from repro_torch.obs.telemetry import TELEMETRY, Stopwatch, block_on
+from repro_torch.optim.adam import (AdamConfig, adam_init, adam_update_,
+                                    bias_correction_tables)
 
-# Per-site lr rules ride adam_update's per-leaf lr_scale tree, so the base
+DEFAULT_CHUNK = 100  # steps between host syncs (the reference's scan chunk)
+WARMUP_STEPS = 3     # steps run on a side stream before a capture
+
+# Per-site lr rules ride adam_update_'s per-leaf lr_scale tree, so the base
 # config carries lr=1.0 and each leaf scales it by its plan's lr.
 _W_BASE_CFG = AdamConfig(lr=1.0)
 
@@ -73,11 +117,19 @@ class Site:
 
 @dataclasses.dataclass
 class BlockHandle:
-    """A reconstruction unit: params + apply(params, x, ctx) -> y."""
+    """A reconstruction unit: params + apply(params, x, ctx) -> y.
+
+    ``apply_key``: optional hashable token naming the computation of
+    ``apply`` apart from this block's parameter values and site names.
+    Blocks that carry the same token (the layers one ``quant_blocks`` call
+    returns) share one engine. The token must be fresh per call: the apply
+    closures bake per-call constants (the rope tables). ``None`` shares
+    nothing (the engine is still cached per apply function)."""
     name: str
     params: Any
     apply: Callable[[Any, torch.Tensor, QuantCtx], torch.Tensor]
     sites: Dict[str, Site]
+    apply_key: Optional[Any] = None
 
 
 def _empty_curve() -> np.ndarray:
@@ -95,6 +147,9 @@ class BlockReport:
     # per-step loss / MSE trajectories, read from the device once per block
     loss_curve: Any = dataclasses.field(default_factory=_empty_curve)
     mse_curve: Any = dataclasses.field(default_factory=_empty_curve)
+    # "graph": the steps replayed a captured CUDA graph; "eager": the body
+    # ran call by call
+    engine: str = "eager"
 
     _CURVES = ("loss_curve", "mse_curve")
 
@@ -125,6 +180,66 @@ class Schedule:
     QDrop mask (True keeps fp), None to draw them from the site streams."""
     idx: Any = None
     masks: Optional[Sequence[Mapping[str, Any]]] = None
+
+
+# ------------------------------------------------------------ engine stats
+@dataclasses.dataclass
+class EngineStats:
+    """The engine cache's counters, under the reference's names.
+    ``step_compiles`` counts CUDA-graph captures of the step (0 on the
+    CPU, which captures nothing); ``engine_builds`` and ``engine_hits``
+    count cache misses and hits on every device. The port runs the
+    teacher, the student pass, ``recon_error`` and the minibatch schedule
+    eagerly once per block, so their counters stay 0, and
+    ``probe_compiles`` waits for the bit allocator (ROADMAP item 10)."""
+    step_compiles: int = 0
+    schedule_compiles: int = 0
+    teacher_compiles: int = 0
+    student_compiles: int = 0
+    recon_error_compiles: int = 0
+    probe_compiles: int = 0
+    engine_builds: int = 0
+    engine_hits: int = 0
+
+    @property
+    def compile_count(self) -> int:
+        return (self.step_compiles + self.schedule_compiles +
+                self.teacher_compiles + self.student_compiles +
+                self.recon_error_compiles + self.probe_compiles)
+
+
+_STATS = EngineStats()
+
+
+def engine_stats() -> EngineStats:
+    return _STATS
+
+
+def reset_engine_stats() -> EngineStats:
+    """Zero the counters. The engine cache is not cleared: pair with
+    ``clear_engine_cache`` to measure cold."""
+    for f in dataclasses.fields(EngineStats):
+        setattr(_STATS, f.name, f.default)
+    return _STATS
+
+
+def clear_engine_cache() -> None:
+    _ENGINE_CACHE.clear()
+
+
+@contextlib.contextmanager
+def engine_scope():
+    """Evict the engines built inside the scope when it exits; entries that
+    existed before are untouched. ``quantize_blocks`` runs in one: its
+    blocks' ``apply_key`` tokens are fresh per call, so its engines can
+    never hit again, yet they pin the model, the rope tables, their
+    buffers and, on a card, their graphs and memory pools."""
+    _SCOPE_STACK.append(set())
+    try:
+        yield
+    finally:
+        for k in _SCOPE_STACK.pop():
+            _ENGINE_CACHE.pop(k, None)
 
 
 def site_plans(block: BlockHandle, recipe: QuantRecipe) -> Dict[str, SitePlan]:
@@ -168,89 +283,313 @@ def _trainable_mask(wstates, astates, plans: Dict[str, SitePlan]):
     return wmask, amask
 
 
-# ----------------------------------------------------------- step math
-def _make_step_fn(apply_fn: Callable, recipe: QuantRecipe,
-                  plans: Dict[str, SitePlan], a_opt_cfg: AdamConfig):
-    """One optimization step. Sites may carry different plans (method,
-    bits, lr): each site's state is updated by its own method inside one
-    tree-wide Adam update whose per-leaf lr_scale carries the rule lrs.
+# ------------------------------------------------- canonical names, trees
+class _RenameCtx:
+    """Ctx proxy translating the model's site names to canonical tokens, so
+    one engine serves every structurally identical block: state dicts, plan
+    lookups and QDrop streams all key on the token. Names outside the
+    mapping pass through (they hold no state here and stay fp)."""
+    __slots__ = ("_ctx", "_map")
 
-    ``sw`` (optional, per-sample weights) turns the MSE into a weighted
-    mean over the batch; ``sw=None`` is the plain mean. A leaf its method
-    does not train gets a zero gradient and still rides Adam, as in the
-    reference (so it stays where it is)."""
-    zeros: Dict[Tuple[str, str, str], torch.Tensor] = {}
+    def __init__(self, ctx: QuantCtx, mapping: Dict[str, str]):
+        self._ctx = ctx
+        self._map = mapping
 
-    def loss_fn(params, wstates, astates, x_q, y_fp, sw, step, key):
-        ctx = QuantCtx(mode="recon", recipe=recipe, wstates=wstates,
-                       astates=astates, key=key, plans=plans)
-        y = apply_fn(params, x_q, ctx)
-        se = torch.square(y.float() - y_fp.float())
-        if sw is None:
-            mse = torch.mean(se)
+    def linear(self, name, *args, **kwargs):
+        return self._ctx.linear(self._map.get(name, name), *args, **kwargs)
+
+    def get_weight(self, name, *args, **kwargs):
+        return self._ctx.get_weight(self._map.get(name, name), *args, **kwargs)
+
+    def __getattr__(self, item):
+        return getattr(self._ctx, item)
+
+
+def _canon_names(block: BlockHandle) -> Dict[str, str]:
+    """real site name -> position token (in sorted order, so structurally
+    identical blocks map corresponding sites to the same token)."""
+    return {rn: f"~s{i}" for i, rn in enumerate(sorted(block.sites))}
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a nested dict/list, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _sig(tree):
+    """Hashable layout of a tree: its structure and each tensor's shape and
+    dtype (other leaves by value)."""
+    if isinstance(tree, dict):
+        return tuple((k, _sig(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(_sig(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    return ("~leaf", repr(tree))
+
+
+def _copy(dst, src) -> None:
+    for d, s in zip(_tensors(dst), _tensors(src)):
+        d.copy_(s)
+
+
+def _write(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
+    """Copy the leaves of ``src`` (a ``project`` result) into ``dst``."""
+    for k, t in src.items():
+        if t is not dst[k]:
+            dst[k].copy_(t)
+
+
+def _grad_leaves(states, mask, tag):
+    """States whose trainable leaves are fresh autograd leaves (views of
+    the static leaves)."""
+    out, leaves = {}, []
+    for k, st in states.items():
+        out[k] = {}
+        for n, t in st.items():
+            if mask[k][n]:
+                t = t.detach().requires_grad_(True)
+                leaves.append((tag, k, n, t))
+            out[k][n] = t
+    return out, leaves
+
+
+# ------------------------------------------------------------------ engine
+class _Engine:
+    """The static buffers and the step body of one equivalence class of
+    blocks and, on a card, the step captured in a CUDA graph. Holds the
+    exemplar block's apply (so an id()-keyed entry stays valid) with the
+    exemplar's name mapping."""
+
+    def __init__(self, block: BlockHandle, recipe: QuantRecipe,
+                 plans_c: Dict[str, SitePlan], mapping: Dict[str, str],
+                 c_w, c_a, x_q, y_fp, sample_weight, idx):
+        dev = x_q.device
+
+        def empty(t):
+            return torch.empty_like(t) if isinstance(t, torch.Tensor) else t
+
+        self.apply, self.mapping = block.apply, mapping
+        self.recipe, self.plans = recipe, plans_c
+        self.a_cfg = AdamConfig(lr=recipe.lr_lsq)
+        self.params = _map(empty, block.params)
+        self.ws, self.as_ = _map(empty, c_w), _map(empty, c_a)
+        # float32 moments (both configs' default): load() zeroes them
+        self.wmu = adam_init(self.ws, _W_BASE_CFG)["mu"]
+        self.amu = adam_init(self.as_, self.a_cfg)["mu"]
+        self.x_q, self.y_fp = empty(x_q), empty(y_fp)
+        self.sw = None if sample_weight is None else empty(sample_weight)
+        self.idx = None if idx is None else torch.empty_like(idx)
+        self.step_t = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.losses = torch.zeros((recipe.iters,), dtype=torch.float32,
+                                  device=dev)
+        self.mses = torch.zeros_like(self.losses)
+        self.w_corr = bias_correction_tables(_W_BASE_CFG, recipe.iters, dev)
+        self.a_corr = bias_correction_tables(self.a_cfg, recipe.iters, dev)
+        self.wmask, self.amask = _trainable_mask(self.ws, self.as_, plans_c)
+        self.w_lr = {k: {n: plans_c[k].lr for n in v}
+                     for k, v in self.ws.items()}
+        # gradients of leaves that no method trains (or that the forward
+        # does not reach): zeros, made at the first step
+        self.zero_g: Dict[Tuple[str, str, str], torch.Tensor] = {}
+        self.streams = {c: torch.Generator(device=dev) for c in sorted(plans_c)}
+        self.graph = None
+
+    # -------------------------------------------------------------- body
+    def step(self, drop: Callable[[str], qdrop.MaskOrGenerator]) -> None:
+        """One Adam step over the static buffers; ``drop`` maps a canonical
+        site to its QDrop draw. The MSE is a weighted mean over the batch
+        when sample weights are given, the plain mean otherwise."""
+        recipe, plans, step = self.recipe, self.plans, self.step_t
+        if self.idx is None:
+            xb, yb, wb = self.x_q, self.y_fp, self.sw
         else:
-            per = torch.mean(se.reshape(se.shape[0], -1), dim=1)
-            w = sw.float()
-            mse = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
-        reg = torch.zeros((), dtype=torch.float32)
-        for name, st in wstates.items():
-            plan = plans[name]
-            reg = reg + plan.method.loss_extra(st, plan.weight, step, recipe)
-        return mse + reg, mse
-
-    def _leafs(states, mask, tag):
-        """States whose trainable leaves are fresh autograd leaves."""
-        out, leaves = {}, []
-        for k, st in states.items():
-            out[k] = {}
-            for n, t in st.items():
-                if mask[k][n]:
-                    t = t.detach().requires_grad_(True)
-                    leaves.append((tag, k, n, t))
-                out[k][n] = t
-        return out, leaves
-
-    def _grad_tree(states, got, tag):
-        out = {}
-        for k, st in states.items():
-            out[k] = {}
-            for n, t in st.items():
-                g = got.get((tag, k, n))
-                if g is None:
-                    z = zeros.get((tag, k, n))
-                    if z is None:
-                        z = zeros[(tag, k, n)] = torch.zeros_like(t)
-                    g = z
-                out[k][n] = g
-        return out
-
-    def step_fn(params, wstates, astates, wopt, aopt, x_q, y_fp, sw, step,
-                key):
-        wmask, amask = _trainable_mask(wstates, astates, plans)
-        ws, wl = _leafs(wstates, wmask, "w")
-        as_, al = _leafs(astates, amask, "a")
+            ix = self.idx.index_select(0, step).reshape(-1)
+            xb, yb = self.x_q.index_select(0, ix), self.y_fp.index_select(0, ix)
+            wb = None if self.sw is None else self.sw.index_select(0, ix)
+        ws, wl = _grad_leaves(self.ws, self.wmask, "w")
+        as_, al = _grad_leaves(self.as_, self.amask, "a")
         leaves = wl + al
         with torch.enable_grad():
-            loss, mse = loss_fn(params, ws, as_, x_q, y_fp, sw, step, key)
+            ctx = QuantCtx(mode="recon", recipe=recipe, wstates=ws,
+                           astates=as_, key=drop, plans=plans)
+            y = self.apply(self.params, xb, _RenameCtx(ctx, self.mapping))
+            se = torch.square(y.float() - yb.float())
+            if wb is None:
+                mse = torch.mean(se)
+            else:
+                per = torch.mean(se.reshape(se.shape[0], -1), dim=1)
+                w = wb.float()
+                mse = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
+            reg = torch.zeros((), dtype=torch.float32, device=se.device)
+            for name, st in ws.items():
+                plan = plans[name]
+                reg = reg + plan.method.loss_extra(st, plan.weight, step,
+                                                   recipe)
+            loss = mse + reg
             grads = (torch.autograd.grad(loss, [t for *_, t in leaves],
                                          allow_unused=True)
                      if leaves and loss.requires_grad else [None] * len(leaves))
         got = {(tag, k, n): g for (tag, k, n, _), g in zip(leaves, grads)
                if g is not None}
         with torch.no_grad():
-            gw = _grad_tree(wstates, got, "w")
-            w_lr = {k: {n: plans[k].lr for n in v} for k, v in wstates.items()}
-            wstates, wopt, _ = adam_update(gw, wopt, wstates, _W_BASE_CFG,
-                                           lr_scale=w_lr)
-            wstates = {k: plans[k].method.project(v)
-                       for k, v in wstates.items()}
-            if astates:
-                ga = _grad_tree(astates, got, "a")
-                astates, aopt, _ = adam_update(ga, aopt, astates, a_opt_cfg)
-                astates = {k: lsq.project(v) for k, v in astates.items()}
-        return wstates, astates, wopt, aopt, loss.detach(), mse.detach()
+            c1, c2 = (t.index_select(0, step).reshape(()) for t in self.w_corr)
+            adam_update_(self._grads(self.ws, got, "w"), self.wmu, self.ws,
+                         _W_BASE_CFG, c1, c2, lr_scale=self.w_lr)
+            for k, st in self.ws.items():
+                _write(st, plans[k].method.project(st))
+            if self.as_:
+                c1, c2 = (t.index_select(0, step).reshape(())
+                          for t in self.a_corr)
+                adam_update_(self._grads(self.as_, got, "a"), self.amu,
+                             self.as_, self.a_cfg, c1, c2)
+                for st in self.as_.values():
+                    _write(st, lsq.project(st))
+            self.losses.index_copy_(0, step, loss.detach().reshape(1))
+            self.mses.index_copy_(0, step, mse.detach().reshape(1))
+            step.add_(1)
 
-    return step_fn
+    def _grads(self, states, got, tag):
+        """The gradient tree of ``states``: autograd's, else zeros (such a
+        leaf still rides Adam, as in the reference, and stays put)."""
+        out = {}
+        for k, st in states.items():
+            out[k] = {}
+            for n, t in st.items():
+                g = got.get((tag, k, n))
+                if g is None:
+                    g = self.zero_g.get((tag, k, n))
+                    if g is None:
+                        g = self.zero_g[(tag, k, n)] = torch.zeros_like(t)
+                out[k][n] = g
+        return out
+
+    # ----------------------------------------------------------- driving
+    @torch.no_grad()
+    def load(self, params, c_w, c_a, x_q, y_fp, sample_weight, idx,
+             seeds: Dict[str, int]) -> None:
+        """Copy one block's params, initial states and streams into the
+        buffers; zero the moments, the counter and the curves; seed the
+        QDrop generators (canonical site -> seed)."""
+        _copy(self.params, params)
+        _copy(self.ws, c_w)
+        _copy(self.as_, c_a)
+        for t in _tensors((self.wmu, self.amu)):
+            t.zero_()
+        self.x_q.copy_(x_q)
+        self.y_fp.copy_(y_fp)
+        if sample_weight is not None:
+            self.sw.copy_(sample_weight)
+        if idx is not None:
+            self.idx.copy_(idx)
+        self.step_t.zero_()
+        self.losses.zero_()
+        self.mses.zero_()
+        for c, gen in self.streams.items():
+            gen.manual_seed(seeds[c])
+
+    def capture(self, reload: Callable[[], None]) -> None:
+        """Warm the step up on a side stream, ``reload`` the block, capture
+        one step in the graph's own memory pool, ``reload`` again. The step
+        launches no hand-written kernel (recon mode dequantizes nothing);
+        whatever the warm-up and the capture launch stays out of the kernel
+        counters all the same."""
+        from repro_torch.kernels import ops
+        dev = self.x_q.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        drop = self.streams.__getitem__
+        with ops.set_aside(), torch.cuda.stream(stream):
+            for _ in range(WARMUP_STEPS):
+                self.step_t.zero_()  # every warm-up step reads row 0
+                self.step(drop)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        reload()
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.streams.values():
+            graph.register_generator_state(gen)
+        sw = Stopwatch()
+        with ops.set_aside(), torch.cuda.graph(graph, stream=stream):
+            self.step(drop)
+        dur = sw.elapsed_s()
+        self.graph = graph
+        _STATS.step_compiles += 1
+        compile_events.record_capture("recon.step", dur)
+        reload()
+
+    def run(self, graphed: bool, masks, inv: Dict[str, str], chunk: int,
+            name: str) -> None:
+        """``recipe.iters`` steps: replays of the captured step, or the body
+        called directly; with ``masks`` (a ``Schedule``'s, keyed by real
+        site names; ``inv`` maps canonical names back), each step draws its
+        own. The host waits for the device at the end of every chunk of
+        ``chunk`` steps."""
+        iters = self.recipe.iters
+        it = n_chunk = 0
+        while it < iters:
+            n = min(chunk, iters - it)
+            with TELEMETRY.span("recon.chunk", block=name, start=it,
+                                steps=n) as sp, \
+                    profiler.annotate("recon.chunk", n_chunk):
+                for t in range(it, it + n):
+                    if masks is not None:
+                        self.step(lambda c, m=masks[t]: m[inv[c]])
+                    elif graphed:
+                        self.graph.replay()
+                    else:
+                        self.step(self.streams.__getitem__)
+                sp.block_on(self.mses)  # the span records its sync
+                block_on(self.mses)  # and the annotation holds the device's
+            it += n
+            n_chunk += 1
+
+
+_ENGINE_CACHE: "collections.OrderedDict[Any, _Engine]" = collections.OrderedDict()
+_ENGINE_CACHE_MAX = 64
+# Engines built inside a quantize_blocks call are evicted when it returns
+# (engine_scope); entries from direct reconstruct_block use stay in the
+# bounded LRU.
+_SCOPE_STACK: List[set] = []
+
+
+def _get_engine(block: BlockHandle, recipe: QuantRecipe,
+                plans: Dict[str, SitePlan], canon: Dict[str, str],
+                c_w, c_a, x_q, y_fp, sample_weight, idx) -> _Engine:
+    akey = (block.apply_key if block.apply_key is not None
+            else ("~obj", id(block.apply)))
+    sites = tuple(sorted(
+        (canon[rn], s.kind, s.batch_dims, plans[rn].cache_key())
+        for rn, s in block.sites.items()))
+    # what the static buffers (and a captured graph) fix
+    bufs = (x_q.device, _sig(block.params), _sig(c_w), _sig(c_a),
+            _sig(x_q), _sig(y_fp), _sig(sample_weight), _sig(idx))
+    key = (akey, sites, recipe, bufs)
+    eng = _ENGINE_CACHE.get(key)
+    if eng is not None:
+        _STATS.engine_hits += 1
+        _ENGINE_CACHE.move_to_end(key)
+        return eng
+    eng = _Engine(block, recipe, {canon[rn]: plans[rn] for rn in block.sites},
+                  canon, c_w, c_a, x_q, y_fp, sample_weight, idx)
+    _STATS.engine_builds += 1
+    _ENGINE_CACHE[key] = eng
+    if _SCOPE_STACK:
+        _SCOPE_STACK[-1].add(key)
+    while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
+        _ENGINE_CACHE.popitem(last=False)
+    return eng
 
 
 @torch.no_grad()
@@ -285,20 +624,35 @@ def _batch_schedule(gen: torch.Generator, iters: int, n: int, bs: int):
                                     device=gen.device), dim=1)[:, :bs]
 
 
+def _use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
+    """``graphs`` resolved against the run's device: None captures on a
+    card; True on the CPU raises, as ``ServeEngine`` does."""
+    on_card = device.type == "cuda"
+    if graphs and not on_card:
+        raise ValueError(f"graphs=True needs a CUDA device, got {device}; on "
+                         "the CPU the step runs directly (graphs=None)")
+    return on_card if graphs is None else bool(graphs)
+
+
 def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
          wstates, astates_all, x_q, y_fp, seed: int, sample_weight=None,
-         schedule: Optional[Schedule] = None):
+         schedule: Optional[Schedule] = None, chunk: int = DEFAULT_CHUNK,
+         graphs: Optional[bool] = None):
     """The optimization loop of one block: returns (wstates, astates_all,
-    err0, err1, loop_seconds, loss_curve, mse_curve)."""
+    err0, err1, loop_seconds, loss_curve, mse_curve, engine)."""
     dev = x_q.device
-    a_opt_cfg = AdamConfig(lr=recipe.lr_lsq)
-    c_a = {r: astates_all[r] for r in block.sites if r in astates_all}
-    wopt = adam_init(wstates, _W_BASE_CFG)
-    aopt = adam_init(c_a, a_opt_cfg)
-    step = _make_step_fn(block.apply, recipe, plans, a_opt_cfg)
+    graphed = _use_graphs(graphs, dev)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    a_in = {r: astates_all[r] for r in block.sites if r in astates_all}
+    err0 = recon_error(block, recipe, wstates, a_in, x_q, y_fp, plans)
+    if not recipe.iters:  # nothing to learn: no engine, no draws
+        return (wstates, dict(astates_all), err0, err0, 0.0, _empty_curve(),
+                _empty_curve(), "eager")
 
     n = x_q.shape[0]
     bs = min(recipe.batch_size, n)
+    masks = None
     if schedule is not None:
         idx = (None if schedule.idx is None
                else torch.as_tensor(np.asarray(schedule.idx), device=dev).long())
@@ -306,37 +660,36 @@ def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        idx, masks = _batch_schedule(gen, recipe.iters, n, bs), None
-    streams = qdrop.SiteStreams(seed, dev)
+        idx = _batch_schedule(gen, recipe.iters, n, bs)
+    graphed = graphed and masks is None  # given masks are copied in per step
 
-    err0 = recon_error(block, recipe, wstates, c_a, x_q, y_fp, plans)
-    losses = torch.zeros((recipe.iters,), dtype=torch.float32, device=dev)
-    mses = torch.zeros((recipe.iters,), dtype=torch.float32, device=dev)
+    canon = _canon_names(block)
+    inv = {c: r for r, c in canon.items()}
+    c_w = {canon[r]: v for r, v in wstates.items()}
+    c_a = {canon[r]: v for r, v in a_in.items()}
+    eng = _get_engine(block, recipe, plans, canon, c_w, c_a, x_q, y_fp,
+                      sample_weight, idx)
+    seeds = {c: qdrop.site_seed(seed, inv[c]) for c in eng.streams}
+    reload = partial(eng.load, block.params, c_w, c_a, x_q, y_fp,
+                     sample_weight, idx, seeds)
+    reload()
+    if graphed and eng.graph is None:
+        eng.capture(reload)
     sw = Stopwatch()
-    with TELEMETRY.span("recon.chunk", block=block.name, start=0,
-                        steps=recipe.iters) as sp, \
-            profiler.annotate("recon.chunk", 0):
-        for it in range(recipe.iters):
-            if idx is None:
-                xb, yb, wb = x_q, y_fp, sample_weight
-            else:
-                ix = idx[it]
-                xb, yb = x_q.index_select(0, ix), y_fp.index_select(0, ix)
-                wb = (None if sample_weight is None
-                      else sample_weight.index_select(0, ix))
-            key = streams if masks is None else masks[it].__getitem__
-            wstates, c_a, wopt, aopt, loss, mse = step(
-                block.params, wstates, c_a, wopt, aopt, xb, yb, wb, it, key)
-            losses[it] = loss
-            mses[it] = mse
-        sp.block_on(mses)
-    curves = torch.stack([losses, mses]).cpu().numpy()  # the block's one sync
+    eng.run(graphed, masks, inv, chunk, block.name)
+    curves = torch.stack([eng.losses, eng.mses]).cpu().numpy()
     loop_s = sw.elapsed_s()
-    err1 = (recon_error(block, recipe, wstates, c_a, x_q, y_fp, plans)
-            if recipe.iters else err0)
+
+    def out(states):
+        return {inv[c]: {k: t.clone() for k, t in st.items()}
+                for c, st in states.items()}
+
+    w_out, a_new = out(eng.ws), out(eng.as_)
+    err1 = recon_error(block, recipe, w_out, a_new, x_q, y_fp, plans)
     a_out = dict(astates_all)
-    a_out.update(c_a)
-    return wstates, a_out, err0, err1, loop_s, curves[0], curves[1]
+    a_out.update(a_new)
+    return (w_out, a_out, err0, err1, loop_s, curves[0], curves[1],
+            "graph" if graphed else "eager")
 
 
 def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
@@ -344,11 +697,17 @@ def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
                       astates: Optional[Dict[str, Any]] = None, *,
                       sample_weight: Optional[torch.Tensor] = None,
                       schedule: Optional[Schedule] = None,
+                      chunk: int = DEFAULT_CHUNK,
+                      graphs: Optional[bool] = None,
                       ) -> Tuple[Dict[str, Any], Dict[str, Any], BlockReport]:
     """Optimize the rounding (and LSQ) states of one block; returns
     (wstates, astates, report). ``key``: a seed or a ``torch.Generator``
     (None: ``recipe.seed``). ``sample_weight``: optional (N,) per-sample
-    loss weights. ``schedule``: the caller's draws (see ``Schedule``)."""
+    loss weights. ``schedule``: the caller's draws (see ``Schedule``).
+    ``chunk``: steps between host syncs (one ``recon.chunk`` span each).
+    ``graphs``: None replays the step's CUDA graph on a card and runs the
+    body directly on the CPU; False runs it directly on a card too (for
+    comparisons only); True on the CPU raises."""
     sw = Stopwatch()
     with TELEMETRY.span("recon.block", block=block.name, iters=recipe.iters):
         plans = site_plans(block, recipe)
@@ -356,13 +715,14 @@ def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
             wstates = init_wstates(block, recipe)
         astates = astates if astates is not None else init_astates(
             block, recipe, x_q)
-        wstates, astates, err0, err1, loop_s, loss_curve, mse_curve = _run(
-            block, recipe, plans, wstates, astates, x_q, y_fp,
-            _seed(key, recipe), sample_weight, schedule)
+        (wstates, astates, err0, err1, loop_s, loss_curve, mse_curve,
+         engine) = _run(block, recipe, plans, wstates, astates, x_q, y_fp,
+                        _seed(key, recipe), sample_weight, schedule, chunk,
+                        graphs)
     return wstates, astates, BlockReport(
         block.name, err0, err1, recipe.iters, sw.elapsed_s(),
         steps_per_s=recipe.iters / max(loop_s, 1e-9),
-        loss_curve=loss_curve, mse_curve=mse_curve)
+        loss_curve=loss_curve, mse_curve=mse_curve, engine=engine)
 
 
 @torch.no_grad()
@@ -402,7 +762,9 @@ def _explode_layerwise(block: BlockHandle, recipe: QuantRecipe, x_q):
         sub = BlockHandle(name=f"{block.name}/{name}", params={"w": w},
                           apply=apply_fn,
                           sites={name: Site(path=("w",), kind=site.kind,
-                                            batch_dims=site.batch_dims)})
+                                            batch_dims=site.batch_dims)},
+                          apply_key=("~layerwise", site.kind,
+                                     site.batch_dims))
         subs.append((name, sub, x_site))
     return subs
 
@@ -413,6 +775,8 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
                     progress: Optional[Callable[[str], None]] = None, *,
                     allocation: Optional[dict] = None,
                     sample_weight: Optional[torch.Tensor] = None,
+                    chunk: int = DEFAULT_CHUNK,
+                    graphs: Optional[bool] = None,
                     ) -> Tuple[List[Any], Dict[str, Any], List[BlockReport]]:
     """Sequentially quantize a chain of blocks (the paper's full procedure).
 
@@ -428,7 +792,20 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
     finished blocks. ``allocation``: summary of the bit allocation that
     emitted the recipe's rules, recorded in every checkpoint; a resume
     whose per-site plans or allocation digest differ raises ("PTQ resume
-    mismatch")."""
+    mismatch"). ``chunk`` and ``graphs`` as in ``reconstruct_block``.
+
+    Structurally identical blocks share one engine (``BlockHandle.apply_key``);
+    the engines built here are released when the call returns
+    (``engine_scope``)."""
+    _use_graphs(graphs, x0.device)  # fail before any work
+    with engine_scope():
+        return _quantize_blocks(blocks, recipe, x0, key, as_qtensor,
+                                checkpoint_dir, progress, allocation,
+                                sample_weight, chunk, graphs)
+
+
+def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
+                     progress, allocation, sample_weight, chunk, graphs):
     seeds = torch.Generator()
     seeds.manual_seed(_seed(key, recipe))
     x_fp = x_q = x0
@@ -459,14 +836,15 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
                 ws, a_sub, rep = reconstruct_block(
                     sub, recipe, x_site, y_site,
                     qdrop.fold_in(bseed, qdrop.salt(name)),
-                    astates=dict(astates), sample_weight=sample_weight)
+                    astates=dict(astates), sample_weight=sample_weight,
+                    chunk=chunk, graphs=graphs)
                 astates.update(a_sub)
                 wstates[name] = ws[name]
                 reports.append(rep)
         else:
             wstates, astates, rep = reconstruct_block(
                 block, recipe, x_q, y_fp, bseed, astates=astates,
-                sample_weight=sample_weight)
+                sample_weight=sample_weight, chunk=chunk, graphs=graphs)
             reports.append(rep)
         new_params = finalize_block(block, recipe, wstates,
                                     as_qtensor=as_qtensor)

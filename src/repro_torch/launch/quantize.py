@@ -27,11 +27,17 @@ and decode step annotated) into ``<--telemetry DIR or $TMPDIR/repro_profile>
 prefill bucket and one for decode) and runs the same bodies directly on the
 CPU.
 
+The reconstruction replays one CUDA graph per engine on the card (the
+step of each group of identical blocks captured once, ``core.reconstruct``)
+and runs the same step directly on the CPU; ``--scan-chunk N`` sets the
+steps between the host's syncs (one ``recon.chunk`` span each). After the
+run the launcher prints the engine's counters as the reference does
+(``compiles: step=... (total ...)``; ``step`` counts the captures).
+
 Flags whose subsystem is not ported yet exit with an error naming the
 ROADMAP item: ``--mesh``/``--multi-pod`` (item 11), ``--auto-bits``/
 ``--budget``/``--alloc-objective`` (item 10) and ``--analyze``/
-``--analyze-mem`` (item 15). ``--scan-chunk`` takes only its default: the
-eager loop has no scan chunks.
+``--analyze-mem`` (item 15).
 """
 from __future__ import annotations
 
@@ -49,7 +55,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import QuantRecipe, method_api
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.qtensor import tree_weight_bytes
-from repro_torch.core.reconstruct import quantize_blocks, site_plans
+from repro_torch.core.reconstruct import (DEFAULT_CHUNK, engine_stats,
+                                          quantize_blocks, reset_engine_stats,
+                                          site_plans)
 from repro_torch.data import CalibrationSet, SyntheticTokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import build_model
@@ -60,9 +68,12 @@ from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.smoke import serve_capability
 
-# The reference fuses this many steps per jitted dispatch; the eager loop
-# has no chunks, so the flag accepts only this value.
-DEFAULT_CHUNK = 100
+
+def _at_least_one(text: str) -> int:
+    n = int(text)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"{n} is not >= 1")
+    return n
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,9 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable telemetry (repro_torch.obs): spans, "
                          "counters and histograms stream to "
                          "DIR/events.jsonl as manifest-stamped JSONL")
-    ap.add_argument("--scan-chunk", type=int, default=DEFAULT_CHUNK,
-                    help="the reference's steps per fused dispatch; the "
-                         "port's eager loop accepts only the default")
+    ap.add_argument("--scan-chunk", type=_at_least_one, default=DEFAULT_CHUNK,
+                    help="reconstruction steps between host syncs (the "
+                         "reference's steps per fused dispatch); >= 1")
     # not ported yet: each exits with its ROADMAP item (see _reject_unported)
     ap.add_argument("--analyze", action="store_true",
                     help="not ported yet (ROADMAP Queue 1 item 15)")
@@ -165,11 +176,6 @@ def _reject_unported(args) -> None:
             raise SystemExit(f"repro_torch.launch.quantize: {flags}: {what} "
                              f"is not ported yet (ROADMAP Queue 1 item "
                              f"{item})")
-    if args.scan_chunk != DEFAULT_CHUNK:
-        raise SystemExit(
-            f"repro_torch.launch.quantize: --scan-chunk {args.scan_chunk}: "
-            "the port's reconstruction loop is eager and has no scan chunks; "
-            f"only the default {DEFAULT_CHUNK} is accepted")
 
 
 @dataclasses.dataclass
@@ -192,6 +198,16 @@ def _rule_text(rule) -> str:
     return rule.pattern + ":" + ",".join(f"{k}={v}" for k, v in rule.overrides)
 
 
+def build_recipe(args) -> QuantRecipe:
+    """The run's recipe from the parsed flags (minibatches of
+    ``min(16, --calib)``, as the reference's launcher)."""
+    return QuantRecipe(method=args.method, setting=args.setting,
+                       recon=args.recon, w_bits=args.w_bits,
+                       w_granularity=args.w_granularity, a_bits=args.a_bits,
+                       iters=args.iters, lr=args.lr,
+                       batch_size=min(16, args.calib), rules=tuple(args.rule))
+
+
 def run(args, params=None, calib_tokens=None) -> LaunchResult:
     """The launcher behind ``main``. ``params`` (a parameter tree) and
     ``calib_tokens`` ((N, S) ints) replace the drawn weights and the
@@ -210,12 +226,7 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
         params = model.init(torch.Generator(device=dev).manual_seed(0),
                             device=dev)
 
-    recipe = QuantRecipe(method=args.method, setting=args.setting,
-                         recon=args.recon, w_bits=args.w_bits,
-                         w_granularity=args.w_granularity,
-                         a_bits=args.a_bits, iters=args.iters, lr=args.lr,
-                         batch_size=min(16, args.calib),
-                         rules=tuple(args.rule))
+    recipe = build_recipe(args)
     if calib_tokens is None:
         src = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq, seed=0)
         calib_tokens = CalibrationSet.build(src, args.calib).tokens
@@ -258,18 +269,24 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
     if args.resume_dir is not None:
         saved = PTQCheckpointer(args.resume_dir).meta()
         resumed = 0 if saved is None else len(saved["reports"])
+    reset_engine_stats()
     finalized, astates, reports = quantize_blocks(
         blocks, recipe, x0, checkpoint_dir=args.resume_dir,
-        progress=lambda s: print(s, flush=True))
+        progress=lambda s: print(s, flush=True), chunk=args.scan_chunk)
     qparams = assemble(finalized)
 
     ran = reports[resumed:]  # units reconstructed by this process
     steps = sum(r.iters for r in ran)
     loop_s = sum(r.iters / r.steps_per_s for r in ran if r.steps_per_s > 0)
+    st = engine_stats()
     print(f"recon: {steps} steps over {len(ran)} unit(s) in {loop_s:.2f}s "
           f"({steps / max(loop_s, 1e-9):.1f} steps/s); {resumed} unit(s) "
-          "resumed from the checkpoint; eager loop, nothing compiled",
-          flush=True)
+          f"resumed from the checkpoint; compiles: step={st.step_compiles} "
+          f"teacher={st.teacher_compiles} student={st.student_compiles} "
+          f"recon_err={st.recon_error_compiles} "
+          f"schedule={st.schedule_compiles} probe={st.probe_compiles} "
+          f"(total {st.compile_count}); engines {st.engine_builds} built, "
+          f"{st.engine_hits} reused", flush=True)
 
     out = args.out or os.path.join(tempfile.gettempdir(),
                                    f"quantized_{cfg.name}_{args.method}")

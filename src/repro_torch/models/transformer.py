@@ -258,12 +258,16 @@ class TransformerLM:
         """Returns (x0 hidden stream, per-layer BlockHandles, assemble_fn).
         Block sites are named ``layers.<i>.<site>`` so rules such as
         ``layers.0.*`` address one layer; ``assemble_fn(finalized)`` returns
-        the params with the finalized (QTensor) layers."""
+        the params with the finalized (QTensor) layers. Every block carries
+        the ``apply_key`` ``(call_token, kind)`` with a token fresh to this
+        call (the closures bake its rope tables), so the layers share one
+        reconstruction engine per distinct plan."""
         cfg = self.cfg
         x0 = common.embed_tokens(params["embed"], batch_tokens, cfg.emb_mult)
         S = batch_tokens.shape[1]
         # batch-size-1 rope tables broadcast over the calibration batch
         sin, cos = self._rope(torch.arange(S, device=x0.device)[None])
+        call_token = object()
         blocks = []
         for i, p_l in enumerate(params["layers"]):
             bname = f"layers.{i}"
@@ -274,7 +278,8 @@ class TransformerLM:
                 return self.layer_apply(p, x, ctx, _bn, sin, cos)[0]
 
             blocks.append(BlockHandle(name=bname, params=p_l, apply=apply_fn,
-                                      sites=sites))
+                                      sites=sites,
+                                      apply_key=(call_token, self.kind)))
 
         def assemble(finalized):
             out = dict(params)

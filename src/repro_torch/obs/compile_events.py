@@ -2,11 +2,13 @@
 (port of ``repro/obs/compile_events.py``).
 
 The reference counts every XLA backend compilation through one
-``jax.monitoring`` listener. The port compiles nothing but the CUDA graphs
-the serving engine captures, so the engine reports each capture here
-(``record_capture``), and each is attributed to the innermost telemetry
-span open when it ran (``serve.build``; ``<unattributed>`` while telemetry
-is off, as in the reference). When the sink is on each capture also lands
+``jax.monitoring`` listener. The port compiles nothing but CUDA graphs:
+the serving engine's (one per prefill bucket and one for decode) and the
+reconstruction engine's (one Adam step per engine, ``recon.step``). Each
+capture is reported here (``record_capture``) and attributed to the
+innermost telemetry span open when it ran (``serve.build``,
+``recon.block``; ``<unattributed>`` while telemetry is off, as in the
+reference). When the sink is on each capture also lands
 as a ``kind="compile"`` JSONL event with its span, graph name and seconds.
 """
 from __future__ import annotations
@@ -40,6 +42,12 @@ def captures() -> int:
         return len(_CAPTURES)
 
 
+def capture_seconds(name: str) -> List[float]:
+    """The seconds of each recorded capture of graph ``name``."""
+    with _LOCK:
+        return [d for n, _, d in _CAPTURES if n == name]
+
+
 def captures_by_span() -> Dict[str, int]:
     """Captures keyed by the telemetry span open when they ran."""
     out: Dict[str, int] = {}
@@ -50,14 +58,19 @@ def captures_by_span() -> Dict[str, int]:
 
 
 def compile_summary() -> Dict:
-    """The captures in one dict. The reconstruction loop captures nothing
-    yet, so it has no ledger of its own here, only a note."""
+    """The captures in one dict, with the reconstruction engine's counters
+    under ``engine`` (as the reference reports them; its ``step_compiles``
+    are the ``recon.step`` captures among ``graph_captures``)."""
+    import dataclasses
+
+    from repro_torch.core.reconstruct import engine_stats
+    st = engine_stats()
     with _LOCK:
         seconds = sum(d for _, _, d in _CAPTURES)
     return {"graph_captures": captures(), "capture_s": seconds,
             "by_span": captures_by_span(),
-            "recon": "eager: the reconstruction step is not captured, "
-                     "nothing is compiled"}
+            "engine": dict(dataclasses.asdict(st),
+                           compile_count=st.compile_count)}
 
 
 def reset() -> None:

@@ -15,9 +15,15 @@ The arithmetic runs as ``torch._foreach_*`` calls over all leaves at once.
 
 ``moment_dtype``: ``float32``, ``bfloat16`` (moments stored rounded), or
 ``int8`` (128-element blocks with absmax scales; the second moment is
-stored in the sqrt domain so small-v blocks do not snap to 0). The step
-count lives on the host as a Python int, so the bias corrections are host
-scalars (computed in float32) and an update never waits on the device.
+stored in the sqrt domain so small-v blocks do not snap to 0).
+
+Two forms share the arithmetic. ``adam_update`` is functional: the step
+count lives in the state as a Python int and the bias corrections are host
+scalars (computed in float32), so an update never waits on the device.
+``adam_update_`` writes the new parameters and moments into the given
+leaves and takes the corrections as device scalars, read from
+``bias_correction_tables`` by a step counter on the device: the form a
+CUDA graph can capture and replay (the reconstruction engine's).
 """
 from __future__ import annotations
 
@@ -98,9 +104,11 @@ def _decode(m: Any, dtype: str, shape, second: bool = False) -> torch.Tensor:
 # -------------------------------------------------------------------- adam
 def adam_init(params: Any, cfg: AdamConfig) -> dict:
     def one(p):
-        z = torch.zeros(tuple(p.shape), dtype=torch.float32, device=p.device)
-        return {"m": _encode(z, cfg.moment_dtype),
-                "v": _encode(z, cfg.moment_dtype, second=True)}
+        def z():  # one buffer per moment: adam_update_ writes them in place
+            return torch.zeros(tuple(p.shape), dtype=torch.float32,
+                               device=p.device)
+        return {"m": _encode(z(), cfg.moment_dtype),
+                "v": _encode(z(), cfg.moment_dtype, second=True)}
 
     leaves = _leaves(params)
     mu = _unflatten(params, iter([one(p) for p in leaves]))
@@ -123,26 +131,20 @@ def _bias_corrections(cfg: AdamConfig, count: int) -> Tuple[float, float]:
     return float(c1), float(c2)
 
 
-def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
-                lr_scale: Any = 1.0) -> Tuple[Any, dict, torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm).
+def bias_correction_tables(cfg: AdamConfig, steps: int,
+                           device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(steps,) float32 tables of c1 and c2 on ``device``: entry t holds
+    the corrections of count t + 1, rounded as ``_bias_corrections``
+    rounds them."""
+    c = np.asarray([_bias_corrections(cfg, t + 1) for t in range(steps)],
+                   np.float32).reshape(steps, 2)
+    t = torch.as_tensor(np.ascontiguousarray(c.T), device=device)
+    return t[0], t[1]
 
-    ``lr_scale`` is a number applied to every leaf or a tree matching
-    ``params`` whose leaves scale ``cfg.lr`` per leaf (the reconstruction
-    loop's per-site lr rules). Call it under ``torch.no_grad()``."""
-    count = state["count"] + 1
-    flat_p = _leaves(params)
-    flat_g = [g.float() for g in _leaves(grads, params)]
-    flat_mu = _leaves(state["mu"], params)
-    if isinstance(lr_scale, (int, float)):
-        flat_s = [float(lr_scale)] * len(flat_p)
-    else:
-        flat_s = [float(s) for s in _leaves(lr_scale, params)]
-    gnorm = global_norm(flat_g)
-    if cfg.grad_clip is not None:
-        clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        flat_g = [g * clip for g in flat_g]
-    c1, c2 = _bias_corrections(cfg, count)
+
+def _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg: AdamConfig, c1, c2):
+    """The update of every leaf: (new params in their dtypes, new encoded
+    moments). ``c1``/``c2``: numbers or 0-d float32 tensors."""
     dt = cfg.moment_dtype
     m = [_decode(mu["m"], dt, p.shape) for mu, p in zip(flat_mu, flat_p)]
     v = [_decode(mu["v"], dt, p.shape, second=True)
@@ -164,5 +166,63 @@ def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
     newp = [q.to(p.dtype) for q, p in zip(newp, flat_p)]
     new_mu = [{"m": _encode(mm, dt), "v": _encode(vv, dt, second=True)}
               for mm, vv in zip(m, v)]
+    return newp, new_mu
+
+
+def _flat_args(grads, params, lr_scale):
+    flat_p = _leaves(params)
+    flat_g = [g.float() for g in _leaves(grads, params)]
+    if isinstance(lr_scale, (int, float)):
+        flat_s = [float(lr_scale)] * len(flat_p)
+    else:
+        flat_s = [float(s) for s in _leaves(lr_scale, params)]
+    return flat_p, flat_g, flat_s
+
+
+def _clipped(flat_g, cfg: AdamConfig, gnorm):
+    if cfg.grad_clip is None:
+        return flat_g
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    return [g * clip for g in flat_g]
+
+
+def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
+                lr_scale: Any = 1.0) -> Tuple[Any, dict, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm).
+
+    ``lr_scale`` is a number applied to every leaf or a tree matching
+    ``params`` whose leaves scale ``cfg.lr`` per leaf (the reconstruction
+    loop's per-site lr rules). Call it under ``torch.no_grad()``."""
+    count = state["count"] + 1
+    flat_p, flat_g, flat_s = _flat_args(grads, params, lr_scale)
+    flat_mu = _leaves(state["mu"], params)
+    gnorm = global_norm(flat_g)
+    flat_g = _clipped(flat_g, cfg, gnorm)
+    c1, c2 = _bias_corrections(cfg, count)
+    newp, new_mu = _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg, c1, c2)
     return (_unflatten(params, iter(newp)),
             {"mu": _unflatten(params, iter(new_mu)), "count": count}, gnorm)
+
+
+def adam_update_(grads: Any, mu: Any, params: Any, cfg: AdamConfig,
+                 c1: torch.Tensor, c2: torch.Tensor,
+                 lr_scale: Any = 1.0) -> None:
+    """``adam_update`` in place: writes the new parameters into the leaves
+    of ``params`` and the new moments into ``mu`` (``adam_init(...)["mu"]``).
+    ``c1``/``c2`` are this step's bias corrections as 0-d float32 tensors
+    (``bias_correction_tables`` indexed by the step on the device), so the
+    call makes no host sync and reads no host step count. Call it under
+    ``torch.no_grad()``."""
+    flat_p, flat_g, flat_s = _flat_args(grads, params, lr_scale)
+    flat_mu = _leaves(mu, params)
+    if cfg.grad_clip is not None:
+        flat_g = _clipped(flat_g, cfg, global_norm(flat_g))
+    newp, new_mu = _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg, c1, c2)
+    torch._foreach_copy_(flat_p, newp)
+    for dst, src in zip(flat_mu, new_mu):
+        for k in ("m", "v"):
+            if isinstance(dst[k], dict):  # int8 moments: codes and scales
+                for f in dst[k]:
+                    dst[k][f].copy_(src[k][f])
+            else:
+                dst[k].copy_(src[k])

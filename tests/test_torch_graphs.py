@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.quant_config import QuantRecipe
-from repro_torch.core.reconstruct import quantize_blocks
+from repro_torch.core.reconstruct import engine_stats, quantize_blocks
 from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.obs import compile_events, profiler, sink
@@ -277,7 +277,9 @@ def test_captures_are_attributed_to_the_open_span(_fresh_telemetry):
     summary = compile_events.compile_summary()
     assert summary["graph_captures"] == 3 and summary["capture_s"] == 0.875
     assert summary["by_span"] == compile_events.captures_by_span()
-    assert "eager" in summary["recon"] and "engine" not in summary
+    st = engine_stats()
+    assert summary["engine"] == dict(dataclasses.asdict(st),
+                                     compile_count=st.compile_count)
     assert TELEMETRY.snapshot()["counters"]["cuda.graph_captures"] == 2
 
 

@@ -182,12 +182,48 @@ def test_serve_tokens_equal_the_reference_scheduler(runs):
     (["--auto-bits", "4.5"], "item 10"), (["--budget", "bytes"], "item 10"),
     (["--alloc-objective", "mse"], "item 10"), (["--analyze"], "item 15"),
     (["--analyze-mem"], "item 15"),
-    (["--scan-chunk", "50"], "no scan chunks"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit) as e:
         quantize.main(SMOKE + ["--iters", "0", "--device", "cpu"] + flags)
     assert isinstance(e.value.code, str) and item in e.value.code
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_scan_chunk_sets_the_chunks_and_changes_no_result(tmp_path, capsys,
+                                                          chunk):
+    """``--scan-chunk N`` (it used to refuse all but 100) is the number of
+    steps between host syncs: 3 steps per block give ceil(3 / N)
+    ``recon.chunk`` spans per block, and every result equals the default
+    run's. The launcher prints the reference's ``compiles:`` line: on the
+    CPU nothing is captured, and the two W4 layers share one engine."""
+    argv = SMOKE + ["--w-bits", "4", "--a-bits", "8", "--iters", "3",
+                    "--device", "cpu"]
+    plain = quantize.main(argv + ["--out", str(tmp_path / "plain")])
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("recon:")]
+    assert len(line) == 1 and line[0].endswith(
+        "compiles: step=0 teacher=0 student=0 recon_err=0 schedule=0 "
+        "probe=0 (total 0); engines 1 built, 1 reused"), line
+    tel = tmp_path / "tel"
+    res = quantize.main(argv + ["--out", str(tmp_path / "chunked"),
+                                "--scan-chunk", str(chunk),
+                                "--telemetry", str(tel)])
+    spans = [json.loads(ln) for ln in open(tel / "events.jsonl")]
+    chunks = [e for e in spans if e.get("kind") == "span"
+              and e.get("name") == "recon.chunk"]
+    assert len(chunks) == 2 * -(-3 // chunk)
+    for a, b in zip(res.reports, plain.reports):
+        assert (a.err_before, a.err_after) == (b.err_before, b.err_after)
+        np.testing.assert_array_equal(a.loss_curve, b.loss_curve)
+        assert a.engine == b.engine == "eager"
+
+
+def test_scan_chunk_below_one_is_refused():
+    with pytest.raises(SystemExit) as e:
+        quantize.main(SMOKE + ["--iters", "0", "--device", "cpu",
+                               "--scan-chunk", "0"])
+    assert e.value.code == 2  # argparse's usage error
 
 
 def test_profile_writes_a_trace(tmp_path):
