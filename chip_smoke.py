@@ -105,6 +105,30 @@ last line is not printed):
               error, or unless the errors' sum after training is below both
               its own sum before and the export-only run's sum. Request 0
               is re-run with the plain versions (5e-2 relative L2).
+   Auto-bits — the trained phase's launcher command plus ``--auto-bits
+              4.5`` (avg_bits budget, combined objective, AUTO_ITERS = 100
+              iterations), ``--resume-dir`` and ``--serve``: the sensitivity
+              probe (every site at 2, 3, 4 and 8 bits; its body captured
+              once per apply_key and bit width and replayed per site),
+              the solver, the emitted rules over the recipe's, the
+              reconstruction (one captured step per distinct per-site bit
+              vector), the export and the scheduler's serve run, counters
+              zeroed before and read after. The recorded allocation must
+              meet its budget (avg_bits <= 4.5) and use at least two bit
+              widths; every export QTensor carries its site's allocated
+              bits, every 2- or 3-bit one nibble-packed; K1 is held against
+              its plain version through the deploy dispatch on one 2-bit
+              and one 3-bit QTensor of the export at M = 4 and 512; request
+              0 is re-run with the plain versions. The same command again
+              must reuse the recorded allocation, probe nothing, resume
+              every block and export the same tensors bit for bit; the
+              command at ``--auto-bits 4.0`` against the same checkpoints
+              must raise the budget-mismatch ValueError. Reports the
+              probe's steps, seconds, probe bodies and capture seconds,
+              its split between the RTN state inits (the mse observer) and
+              the replays, the engines and step captures, the peak device
+              memory, the error sums beside the trained phase's, and
+              serve tokens/s and decode ms per step.
    Preempt  — the same recipe at PREEMPT_ITERS = 10 iterations: a launcher
               run without a break (export A); the same command in a
               subprocess with --resume-dir D, sent SIGKILL once D's
@@ -173,6 +197,11 @@ TRAIN_ITERS = 100
 # checkpoint the launcher subprocess is killed
 PREEMPT_ITERS = 10
 PREEMPT_AT = 10
+# the auto-bits phase: the launcher's --auto-bits budget (numel-weighted
+# average bits), iterations per block, and the budget of its refused resume
+AUTO_BITS = "4.5"
+AUTO_ITERS = TRAIN_ITERS
+AUTO_BITS_OTHER = "4.0"
 # checkpoints and exports of the launcher phases (under build/, gitignored)
 RUNS_DIR = ROOT / "build" / "chip_smoke_runs"
 # the shape each kernel's summary line reports: (M, K, N, x) of a matmul;
@@ -1514,6 +1543,320 @@ def preemption_phase(torch, np):
                 err_after_sum=sum(b for _, b in errs_a))
 
 
+# -------------------------------------------------------------- auto-bits
+class _Tee:
+    """A stdout that also keeps what was written (the launcher's prints)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _site_qtensors(model, layers):
+    """{site name: exported leaf} over the layers, named and found as
+    ``quant_blocks`` names and finds the sites (``layers.<i>.wq`` at
+    ``("attn", "wq")``), so the names are the allocation's."""
+    from repro_torch.core import paths as pth
+    sites = model._layer_sites(model.kind)
+    return {name.replace("layers", f"layers.{i}", 1):
+            pth.get_path(layer, site.path)
+            for i, layer in enumerate(layers) for name, site in sites.items()}
+
+
+def check_low_bit_site(torch, name, qt, M, gen):
+    """One exported 2- or 3-bit QTensor through the deploy dispatch
+    (``ops.qtensor_matmul``, backend "auto") against the plain version
+    (backend "torch") on the same bf16 x: the dispatch must take K1, in
+    the regime its planner picks, within the kernels phase's bf16
+    tolerance."""
+    from repro_torch.kernels import dequant_matmul_w4 as k12
+    from repro_torch.kernels import ops
+    K, N = qt.shape
+    x = torch.randn((M, K), generator=gen, device=DEV).to(torch.bfloat16)
+    fn = k12.dequant_matmul_w4
+    forms = dict(fn.forms)
+    got = ops.qtensor_matmul(x, qt)
+    kernel = ops.last_kernel
+    took = [f for f in forms if fn.forms[f] != forms[f]]
+    want = ops.qtensor_matmul(x, qt, backend="torch")
+    torch.cuda.synchronize()
+    p = k12.plan(M, K, N, x.dtype, True, x.data_ptr(), qt.codes.data_ptr())
+    if kernel != "dequant_matmul_w4" or took != [p.regime]:
+        fail(f"auto-bits: {name} (w{qt.bits}) at M={M} went to {kernel} "
+             f"{took}, planned K1 {p.regime}")
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()) or not bool(
+            (err <= _matmul_tol(torch, x, None, want, K)).all()):
+        fail(f"auto-bits: {name} (w{qt.bits}) at M={M}: K1 against the plain "
+             f"version max |err| {err.max().item():.3e}")
+    return {"kernel": "dequant_matmul_w4", "site": name, "bits": qt.bits,
+            "M": M, "K": K, "N": N, "x": "bfloat16", "regime": p.regime,
+            "max_abs_err": err.max().item()}
+
+
+def auto_bits_phase(torch, np, trained):
+    """smollm-135m through the launcher with automatic bit allocation, in
+    process: ``launcher_argv(AUTO_ITERS) + --auto-bits AUTO_BITS
+    --resume-dir D --out O --serve`` (run 1, the counted window), the same
+    command again (run 2: the recorded allocation reused, every block
+    resumed) and ``--auto-bits AUTO_BITS_OTHER`` against D (run 3: refused).
+    Returns (launch counts of run 1, K1 rows of the 2-/3-bit checks,
+    stats)."""
+    from repro_torch import allocate
+    from repro_torch.allocate import AllocationReport, validate_budget
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as launcher
+    from repro_torch.obs import compile_events
+
+    ckpt, out = str(RUNS_DIR / "auto_ckpt"), str(RUNS_DIR / "auto_export")
+    argv = launcher_argv(AUTO_ITERS) + [
+        "--auto-bits", AUTO_BITS, "--resume-dir", ckpt, "--out", out,
+        "--serve"]
+    log("auto-bits: python -m repro_torch.launch.quantize " + " ".join(argv))
+    marks, probes = {}, []
+    real_serve, real_probe = launcher.serve_engine_run, allocate.probe_blocks
+
+    def serve_engine_run(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["export"] = ops.launch_counts()
+        marks["export_s"] = time.perf_counter() - t0
+        return real_serve(*args, **kwargs)
+
+    def probe_blocks(*args, **kwargs):
+        probes.append(real_probe(*args, **kwargs))
+        return probes[-1]
+
+    n_probe_caps = len(compile_events.capture_seconds("alloc.probe"))
+    n_step_caps = len(compile_events.capture_seconds("recon.step"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launcher.serve_engine_run = serve_engine_run
+    allocate.probe_blocks = probe_blocks
+    tee = _Tee(sys.stdout)
+    try:
+        sys.stdout = tee
+        ops.reset_launch_counts()  # the auto-bits path's run starts here
+        t0 = time.perf_counter()
+        res = launcher.main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()  # the auto-bits path's run ends here
+        launcher_s = time.perf_counter() - t0
+    finally:
+        sys.stdout = tee.out
+        launcher.serve_engine_run = real_serve
+        allocate.probe_blocks = real_probe
+    export_counts, export_s = marks["export"], marks["export_s"]
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    # a copy: the run-2 launcher zeroes the live counters in place
+    st = dataclasses.replace(rc.engine_stats())
+    engine = dict(dataclasses.asdict(st), compile_count=st.compile_count)
+    probe_caps = compile_events.capture_seconds("alloc.probe")[n_probe_caps:]
+    step_caps = compile_events.capture_seconds("recon.step")[n_step_caps:]
+    n_layers = res.cfg.n_layers
+
+    # the allocation: recorded, within its budget, more than one width
+    report = AllocationReport.load(ckpt)
+    if report is None or len(probes) != 1:
+        fail(f"auto-bits: no allocation recorded in {ckpt} or "
+             f"{len(probes)} probe passes")
+    probe = probes[0]
+    bits = report.bits()
+    widths = sorted(set(bits.values()))
+    hist = {b: sum(v == b for v in bits.values()) for b in widths}
+    log("auto-bits allocation: " + report.pretty().splitlines()[0]
+        + f" sites per width {hist}; "
+        + " ".join(report.pretty().splitlines()[-2:]).strip())
+    paths = sorted({n.split(".", 2)[2] for n in bits})
+    log("auto-bits bits per layer: " + " ".join(
+        "".join(str(bits.get(f"layers.{i}.{p}", "?")) for p in paths)
+        for i in range(n_layers)) + f" (sites {paths})")
+    if not validate_budget(report) or report.summary["avg_bits"] > float(
+            AUTO_BITS) or len(widths) < 2 or res.allocation != report.meta():
+        fail(f"auto-bits: allocation {report.summary} over its budget, "
+             f"widths {widths}, or not the run's ({res.allocation})")
+    if len(bits) != 7 * n_layers:
+        fail(f"auto-bits: {len(bits)} sites allocated, {7 * n_layers} exist")
+    # the export carries the allocated bits; <= 4 bits nibble-packed
+    layers = res.qparams["layers"]
+    sites = _site_qtensors(res.model, layers)
+    n_qt = sum(1 for layer in layers for _ in _qtensors(layer))
+    wrong = [(n, getattr(qt, "bits", None), bits.get(n))
+             for n, qt in sites.items()
+             if not hasattr(qt, "codes") or qt.bits != bits.get(n)
+             or (qt.bits <= 4 and not (qt.packed and qt.pack_axis == 0))
+             or int(qt.unpacked_codes().max()) > 2**qt.bits - 1]
+    if sorted(sites) != sorted(bits) or n_qt != len(sites) or wrong:
+        fail(f"auto-bits: export sites differ from the allocation or are "
+             f"stored wrong: {wrong[:5]}")
+
+    # the probe, the engines, the errors
+    log(f"auto-bits probe: {probe.steps} probes in {probe.seconds:.3f}s "
+        f"({probe.steps_per_s:.1f}/s), probe_compiles {st.probe_compiles}, "
+        f"{len(probe_caps)} alloc.probe captures of "
+        f"{sum(probe_caps):.3f}s ({' '.join(f'{c:.3f}' for c in probe_caps)})"
+        f"; rtn.init (the mse observer, {probe.steps} inits) "
+        f"{probe.init_seconds:.3f}s, replays (each read back) "
+        f"{probe.replay_seconds:.3f}s, the rest (teacher, capture pass, "
+        f"captures, fisher) "
+        f"{probe.seconds - probe.init_seconds - probe.replay_seconds:.3f}s")
+    if st.probe_compiles != len(probe_caps) or not 0 < st.probe_compiles <= 8 \
+            or probe.steps != 4 * 7 * n_layers:
+        fail(f"auto-bits: {st.probe_compiles} probe bodies, "
+             f"{len(probe_caps)} captures, {probe.steps} probes")
+    reports = res.reports
+    errs = [(r.err_before, r.err_after) for r in reports]
+    before, after = sum(a for a, _ in errs), sum(b for _, b in errs)
+    steps = sum(r.iters for r in reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in reports)
+    log(f"auto-bits: launcher {launcher_s:.2f}s (probe {probe.seconds:.2f}s,"
+        f" export to the serve run {export_s:.2f}s), {steps} steps, "
+        f"{loop_s:.2f}s in the Adam loops, {steps / loop_s:.1f} steps/s; "
+        f"max_memory_allocated {peak} B, max_memory_reserved {peak_reserved} B")
+    log(f"auto-bits engine: {engine}; engines {st.engine_builds} built, "
+        f"{st.engine_hits} reused; {len(step_caps)} step captures of "
+        f"{sum(step_caps):.3f}s ({' '.join(f'{c:.3f}' for c in step_caps)})")
+    if st.step_compiles != st.engine_builds or len(step_caps) != \
+            st.engine_builds or st.engine_builds + st.engine_hits != n_layers \
+            or any(r.engine != "graph" for r in reports) or res.resumed_units:
+        fail(f"auto-bits: the reconstruction did not replay one captured "
+             f"step per engine: {st}, {len(step_caps)} captures, engines "
+             f"{[r.engine for r in reports]}, {res.resumed_units} resumed")
+    log("auto-bits err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
+    log(f"auto-bits: sum of err_before {before:.6e}, sum of err_after "
+        f"{after:.6e}; trained phase (W4 body, W8 layers 0/29): "
+        f"{trained['err_before_sum']:.6e} -> {trained['err_after_sum']:.6e}")
+    if not all(math.isfinite(a) and math.isfinite(b) for a, b in errs) or \
+            not after < before:
+        fail("auto-bits: training did not lower the reconstruction error")
+
+    # launches: K1 on every packed width, K3 and K2 where sites are 8-bit
+    log(f"auto-bits export launches {export_counts}")
+    log(f"auto-bits serve launches {serve_counts}")
+    need = ["dequant_matmul_w4"] + (["qmatmul_int8"] if 8 in widths else [])
+    if any(export_counts[k] == 0 for k in need) or \
+            serve_counts["dequant_matmul_w4"] == 0 or \
+            (8 in widths and serve_counts["dequant_matmul_w8"] == 0):
+        fail(f"auto-bits: export {export_counts}, serve {serve_counts}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    low = {b: [n for n in sorted(sites) if sites[n].bits == b] for b in (2, 3)}
+    if not all(low.values()):
+        fail(f"auto-bits: the allocation put no site at 2 or 3 bits ({hist});"
+             f" K1 cannot be held at those widths on the export")
+    for b, names in low.items():
+        for M in (4, 512):
+            rows.append(check_low_bit_site(torch, names[-1], sites[names[-1]],
+                                           M, gen))
+    log("auto-bits K1 on the export's low-bit sites: " + "; ".join(
+        f"{r['site']} w{r['bits']} M={r['M']} {r['regime']} "
+        f"max|err| {r['max_abs_err']:.3e}" for r in rows))
+
+    # serving through the scheduler, and request 0 on the plain versions
+    served = res.serve
+    sst, outs = served["stats"], served["outputs"]
+    requests = [(r.rid, r.tokens, r.max_new) for r in served["requests"]]
+    if sorted(outs) != list(range(8)) or any(
+            len(v) != 16 or min(v) < 0 or max(v) >= res.cfg.vocab
+            for v in outs.values()) or sst["compile_count"] != 4:
+        fail(f"auto-bits serve: outputs {outs}, compile_count "
+             f"{sst['compile_count']}")
+    n_tok = sum(len(v) for v in outs.values())
+    rq = sst["requests"]
+    serve = {"serve_s": served["seconds"],
+             "tokens_per_s": n_tok / served["seconds"],
+             "decode_steps": sst["decode_steps"],
+             "decode_ms_per_step": rq["decode_step_us"]["mean"] / 1e3,
+             "ttft_us": rq["ttft_us"], "compile_count": sst["compile_count"]}
+    log(f"auto-bits serve (scheduler): {n_tok} tokens in "
+        f"{served['seconds']:.3f}s -> {serve['tokens_per_s']:.1f} tokens/s, "
+        f"{sst['decode_steps']} decode steps of "
+        f"{serve['decode_ms_per_step']:.2f} ms (mean); trained phase "
+        f"{trained['tokens_per_s']:.1f} tokens/s, "
+        f"{trained['decode_ms_per_step']:.2f} ms")
+    rc0 = recheck_request0(torch, res.model, res.qparams, res.recipe,
+                           res.astates, requests, outs)
+    rc0.pop("routes")
+    log(f"auto-bits: torch backend re-run of request 0: logits relative L2 "
+        f"diff {rc0['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
+        f"{rc0['max_abs_diff']:.4e}; greedy tokens {rc0['greedy_agree']}/"
+        f"{rc0['n_tokens']} identical")
+    if not math.isfinite(rc0["rel_l2"]) or rc0["rel_l2"] > 5e-2 or \
+            not rc0["ties_ok"]:
+        fail("auto-bits: kernel and plain-version serving disagree beyond "
+             "bf16 tolerance")
+
+    # run 2: the same command reuses the allocation and resumes every block
+    tree1, _ = load_pytree(out, device=DEV)
+    del res, sites
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        sys.stdout = tee
+        res2 = launcher.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = tee.out
+    rerun_s = time.perf_counter() - t0
+    st2 = rc.engine_stats()
+    tree2, _ = load_pytree(out, device=DEV)
+    diff = _same_tree(torch, tree1, tree2)
+    reused = "reusing recorded allocation" in tee.text()
+    log(f"auto-bits run 2: {rerun_s:.2f}s, allocation reused {reused}, "
+        f"probe_compiles {st2.probe_compiles}, {res2.resumed_units} blocks "
+        f"resumed, export differs from run 1 at {len(diff)} tensors")
+    if not reused or st2.probe_compiles or res2.resumed_units != n_layers \
+            or diff or res2.allocation != report.meta():
+        fail(f"auto-bits run 2: reused {reused}, {st2}, resumed "
+             f"{res2.resumed_units}, differs at {diff[:5]}")
+    del res2, tree1, tree2
+
+    # run 3: another budget against the recorded allocation is refused
+    other = [a if a != AUTO_BITS else AUTO_BITS_OTHER for a in argv]
+    try:
+        launcher.main(other)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("auto-bits run 3: --auto-bits 4.0 against the recorded 4.5 "
+             "allocation was not refused")
+    if "holds allocation" not in refused or "but this run requests" \
+            not in refused:
+        fail(f"auto-bits run 3: refused with another message: {refused}")
+    log(f"auto-bits run 3 refused: {refused[:160]}...")
+
+    return counts, rows, dict(
+        argv=argv, launcher_s=launcher_s, export_s=export_s,
+        probe={"steps": probe.steps, "seconds": probe.seconds,
+               "steps_per_s": probe.steps_per_s,
+               "init_seconds": probe.init_seconds,
+               "replay_seconds": probe.replay_seconds,
+               "probe_compiles": st.probe_compiles,
+               "capture_s": probe_caps},
+        allocation={"summary": report.summary, "solver": report.solver,
+                    "digest": report.digest(), "sites_per_width": hist},
+        engine_stats=engine, step_capture_s=step_caps, loop_s=loop_s,
+        steps=steps, steps_per_s=steps / loop_s,
+        max_memory_allocated=peak, max_memory_reserved=peak_reserved,
+        err=errs, err_before_sum=before, err_after_sum=after,
+        export_launches=export_counts, serve_launches=serve_counts,
+        serve=serve, recheck=rc0, rerun_s=rerun_s, refused=refused)
+
+
 # ----------------------------------------------------------------- MoE path
 class RouteLog:
     """Records the top-k expert indices of every ``moe.route`` call made
@@ -1766,6 +2109,11 @@ def main() -> int:
     preemption = preemption_phase(torch, np)
     log(f"smollm preemption phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    auto_counts, auto_rows, auto_bits = auto_bits_phase(torch, np, trained)
+    rows.extend(auto_rows)
+    log(f"smollm auto-bits phase (launcher): {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1778,6 +2126,7 @@ def main() -> int:
         src, replaces = SOURCES[name]
         by_path = {"smollm-135m": counts[name],
                    "smollm-135m-trained": trained_counts[name],
+                   "smollm-135m-auto-bits": auto_counts[name],
                    "llama4-scout-17b-a16e": moe_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
@@ -1805,7 +2154,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
          "recon_graphs": recon_graphs, "trained_path": trained,
-         "preemption": preemption,
+         "preemption": preemption, "auto_bits_path": auto_bits,
          "moe_path": moe_path}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -4,6 +4,8 @@ from repro_torch.checkpoint.checkpoint import (  # noqa: F401
     CheckpointManager,
     PTQCheckpointer,
     exists,
+    load_allocation,
     load_pytree,
+    save_allocation,
     save_pytree,
 )

@@ -23,7 +23,9 @@ read ``<path>.old``.
 killed run resumes at the first unfinished block; it records each finished
 block's per-site plans and the bit-allocation digest, and a resume under
 other rules or another allocation fails loudly ("PTQ resume mismatch").
-Reading a JAX export is outside the port (it needs jax): load it with
+``save_allocation``/``load_allocation`` keep the allocation itself beside
+it (``<dir>/allocation.json``, the reference's JSON document). Reading a
+JAX export is outside the port (it needs jax): load it with
 ``repro.checkpoint.load_pytree`` and carry it across with
 ``repro_torch.bridge``.
 """
@@ -174,6 +176,44 @@ def load_pytree(path: str, device: DeviceLike = None) -> Tuple[Any, dict]:
                          map_location=resolve_device(device),
                          weights_only=True)
     return _decode(manifest["tree"], tensors), manifest["meta"]
+
+
+# ----------------------------------------------------- allocation artifacts
+_ALLOCATION = "allocation.json"
+
+
+def save_allocation(directory: str, report: dict) -> str:
+    """Atomically persist a JSON-able allocation report next to the PTQ
+    state (``<dir>/allocation.json``; the document the reference writes)
+    so a resumed run can check that it quantizes under the same bit
+    allocation (see ``repro_torch.allocate.report``). The JSON goes to an
+    fsynced temporary file that ``os.replace`` moves into place, then the
+    directory is fsynced: a kill leaves the old file or the new one."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, _ALLOCATION)
+    fd, tmp = tempfile.mkstemp(prefix=f".{_ALLOCATION}.tmp-", dir=directory)
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    _fsync(directory)
+    return path
+
+
+def load_allocation(directory: str) -> Optional[dict]:
+    """The report ``save_allocation`` wrote in ``directory``; None if it
+    holds none."""
+    path = os.path.join(directory, _ALLOCATION)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 # ----------------------------------------------------------- train ckpts

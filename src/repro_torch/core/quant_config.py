@@ -138,6 +138,14 @@ class SiteRule:
                 and fnmatch.fnmatchcase(site_name, self.pattern[2:]))
 
 
+def exact_site_pattern(site_name: str) -> str:
+    """Glob pattern matching exactly ``site_name`` (fnmatch metacharacters
+    escaped). Allocator-emitted rules use this so a site whose name happens
+    to contain ``*``/``?``/``[`` cannot over-match."""
+    out = site_name.replace("[", "[[]")
+    return out.replace("*", "[*]").replace("?", "[?]")
+
+
 @dataclasses.dataclass(frozen=True)
 class SitePlan:
     """Fully resolved quantization plan for one weight site."""

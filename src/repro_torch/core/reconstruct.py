@@ -71,10 +71,12 @@ for the first resumed block; ROADMAP Queue 3 records the fault, which the
 port does not copy.) With telemetry enabled each block opens a
 ``recon.block`` span and every chunk of its steps a ``recon.chunk`` span.
 
-Not ported here (see ROADMAP): ``probe_teacher`` and
-``count_probe_compile``, whose only caller is the bit allocator (Queue 1
-item 10), and data parallelism over a mesh (``mesh=``, item 11). The
-teacher, the student pass and ``recon_error`` run eagerly once per block.
+The bit allocator's sensitivity probe (``repro_torch.allocate``) takes
+its teacher from ``probe_teacher`` and counts the probe bodies it builds
+with ``count_probe_compile``; it keeps its probe cache inside
+``engine_scope``. Not ported here (see ROADMAP): data parallelism over a
+mesh (``mesh=``, Queue 1 item 11). The teacher, the student pass and
+``recon_error`` run eagerly once per block.
 """
 from __future__ import annotations
 
@@ -190,8 +192,11 @@ class EngineStats:
     CPU, which captures nothing); ``engine_builds`` and ``engine_hits``
     count cache misses and hits on every device. The port runs the
     teacher, the student pass, ``recon_error`` and the minibatch schedule
-    eagerly once per block, so their counters stay 0, and
-    ``probe_compiles`` waits for the bit allocator (ROADMAP item 10)."""
+    eagerly once per block, so their counters stay 0. ``probe_compiles``
+    counts the sensitivity probe's bodies built (``repro_torch.allocate``),
+    one per probe key on every device; on a card each is also one capture.
+    It counts builds where ``step_compiles`` counts captures only, so it is
+    not 0 on the CPU."""
     step_compiles: int = 0
     schedule_compiles: int = 0
     teacher_compiles: int = 0
@@ -739,6 +744,32 @@ def finalize_block(block: BlockHandle, recipe: QuantRecipe, wstates,
         params = pth.set_path(params, site.path,
                               qt if as_qtensor else dequantize_qtensor(qt))
     return params
+
+
+# --------------------------------------------------------------- probe entry
+def probe_teacher(block: BlockHandle, recipe: QuantRecipe, mesh=None):
+    """The teacher for sensitivity-probe passes (``repro_torch.allocate``):
+    ``(params, x) -> y``, the block's fp forward under ``torch.no_grad``.
+    The port runs it eagerly, so it compiles nothing and
+    ``teacher_compiles`` stays 0. ``mesh`` (a sharded probe pass) is not
+    ported (ROADMAP Queue 1 item 11)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "probe_teacher(mesh=...): data parallelism over a mesh is not "
+            "ported yet (ROADMAP Queue 1 item 11)")
+    del recipe  # the fp forward reads no plan
+
+    @torch.no_grad()
+    def teacher(params, x):
+        return block.apply(params, x, QuantCtx(mode="fp"))
+
+    return teacher
+
+
+def count_probe_compile() -> None:
+    """Called once per probe body built (``repro_torch.allocate``), so
+    ``engine_stats().probe_compiles`` counts them."""
+    _STATS.probe_compiles += 1
 
 
 # --------------------------------------------------------------------- driver

@@ -15,6 +15,19 @@ The flags and defaults are the reference's. Runs on the card unless
 for CPU tensors), ``kernel`` (the kernels; CUDA only) or ``torch`` (the plain
 versions).
 
+Automatic mixed precision (sensitivity-guided, ``repro_torch.allocate``):
+
+    ... --auto-bits 4.5                   # numel-weighted average bits
+    ... --auto-bits 150000 --budget bytes # serving-bytes budget
+
+probes every site at candidate bit-widths on the calibration set (the
+probe's bodies captured once per apply_key and bit width on the card),
+solves the budget and appends the emitted per-site rules to the recipe —
+probe, solve and quantize in one invocation. The allocation is persisted to
+--resume-dir (allocation.json) and stamped into every per-block checkpoint;
+a resume reuses the recorded allocation, and a resume under another budget
+or objective fails loudly.
+
 Fault tolerance: per-block PTQ checkpoints (``--resume-dir``). A killed run
 resumes at the first unfinished block and finishes with the results of a run
 without a break, bit for bit; resuming under different rules fails loudly
@@ -32,11 +45,11 @@ step of each group of identical blocks captured once, ``core.reconstruct``)
 and runs the same step directly on the CPU; ``--scan-chunk N`` sets the
 steps between the host's syncs (one ``recon.chunk`` span each). After the
 run the launcher prints the engine's counters as the reference does
-(``compiles: step=... (total ...)``; ``step`` counts the captures).
+(``compiles: step=... (total ...)``; ``step`` counts the captures,
+``probe`` the allocator's probe bodies).
 
 Flags whose subsystem is not ported yet exit with an error naming the
-ROADMAP item: ``--mesh``/``--multi-pod`` (item 11), ``--auto-bits``/
-``--budget``/``--alloc-objective`` (item 10) and ``--analyze``/
+ROADMAP item: ``--mesh``/``--multi-pod`` (item 11) and ``--analyze``/
 ``--analyze-mem`` (item 15).
 """
 from __future__ import annotations
@@ -141,12 +154,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--analyze-mem", action="store_true",
                     help="not ported yet (ROADMAP Queue 1 item 15)")
     ap.add_argument("--auto-bits", type=float, default=None, metavar="VALUE",
-                    help="not ported yet (ROADMAP Queue 1 item 10)")
-    ap.add_argument("--budget", default=None, choices=["avg_bits", "bytes"],
-                    help="not ported yet (ROADMAP Queue 1 item 10)")
-    ap.add_argument("--alloc-objective", default=None,
+                    help="automatic mixed precision: probe per-site "
+                         "sensitivity and allocate bit-widths to meet this "
+                         "budget (interpreted per --budget); emitted rules "
+                         "are appended to the recipe")
+    ap.add_argument("--budget", default="avg_bits",
+                    choices=["avg_bits", "bytes"],
+                    help="meaning of --auto-bits: numel-weighted average "
+                         "bits, or total serving bytes (packed codes + "
+                         "affine grid)")
+    ap.add_argument("--alloc-objective", default="combined",
                     choices=["mse", "fisher", "combined"],
-                    help="not ported yet (ROADMAP Queue 1 item 10)")
+                    help="sensitivity metric the allocator minimizes")
     ap.add_argument("--mesh", default=None, choices=["debug", "production"],
                     help="not ported yet (ROADMAP Queue 1 item 11)")
     ap.add_argument("--multi-pod", action="store_true",
@@ -164,10 +183,6 @@ def _reject_unported(args) -> None:
     waits = (
         (args.mesh is not None or args.multi_pod, "--mesh/--multi-pod",
          "distributed calibration", 11),
-        (args.auto_bits is not None or args.budget is not None
-         or args.alloc_objective is not None,
-         "--auto-bits/--budget/--alloc-objective", "automatic bit allocation",
-         10),
         (args.analyze or args.analyze_mem, "--analyze/--analyze-mem",
          "the static checks", 15),
     )
@@ -191,6 +206,7 @@ class LaunchResult:
     out: str
     serve: Optional[Dict[str, Any]] = None
     serve_smoke_us: Optional[float] = None
+    allocation: Optional[dict] = None  # report.meta() of an --auto-bits run
 
 
 def _rule_text(rule) -> str:
@@ -258,6 +274,14 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
 def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
                         dev) -> LaunchResult:
     x0, blocks, assemble = model.quant_blocks(params, calib_tokens)
+    reset_engine_stats()
+    alloc_meta = None
+    if args.auto_bits is not None:
+        recipe, alloc_meta = apply_auto_bits(
+            blocks, recipe, x0, value=args.auto_bits, budget=args.budget,
+            objective=args.alloc_objective, resume_dir=args.resume_dir)
+        TELEMETRY.emit({"kind": "allocation", "digest": alloc_meta["digest"],
+                        "name": alloc_meta["name"]})
     if recipe.rules:
         overridden = [(n, p.summary()) for b in blocks
                       for n, p in site_plans(b, recipe).items()
@@ -269,10 +293,10 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
     if args.resume_dir is not None:
         saved = PTQCheckpointer(args.resume_dir).meta()
         resumed = 0 if saved is None else len(saved["reports"])
-    reset_engine_stats()
     finalized, astates, reports = quantize_blocks(
         blocks, recipe, x0, checkpoint_dir=args.resume_dir,
-        progress=lambda s: print(s, flush=True), chunk=args.scan_chunk)
+        progress=lambda s: print(s, flush=True), chunk=args.scan_chunk,
+        allocation=alloc_meta)
     qparams = assemble(finalized)
 
     ran = reports[resumed:]  # units reconstructed by this process
@@ -302,7 +326,8 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
 
     result = LaunchResult(cfg=cfg, model=model, qparams=qparams,
                           astates=astates, recipe=recipe, reports=reports,
-                          resumed_units=resumed, out=out)
+                          resumed_units=resumed, out=out,
+                          allocation=alloc_meta)
     if args.serve_smoke:
         result.serve_smoke_us = serve_smoke(
             model, qparams, astates, recipe, cfg, backend=args.backend,
@@ -314,6 +339,48 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
             max_new=args.serve_max_new, kv_quant=not args.no_kv_quant,
             device=dev)
     return result
+
+
+def apply_auto_bits(blocks, recipe, x0, *, value: float, budget: str,
+                    objective: str = "combined", resume_dir=None, mesh=None):
+    """Probe -> solve -> append emitted rules. Returns (recipe, alloc_meta).
+
+    When ``resume_dir`` holds an ``allocation.json`` from an earlier run the
+    recorded allocation is validated against the requested budget and reused
+    (no re-probe) so the resumed run quantizes under the identical rules;
+    a different budget fails loudly.
+    """
+    from repro_torch.allocate import AllocationReport, Budget, auto_allocate
+
+    kind = "weight_bytes" if budget == "bytes" else budget
+    report = None
+    if resume_dir is not None:
+        report = AllocationReport.load(resume_dir)
+    if report is not None:
+        want = {"kind": kind, "value": value}
+        if report.budget != want or report.objective != objective:
+            raise ValueError(
+                f"resume dir {resume_dir} holds allocation "
+                f"{report.name!r} for budget {report.budget} / objective "
+                f"{report.objective!r} but this run requests {want} / "
+                f"{objective!r}; re-run with the original settings or a "
+                "fresh checkpoint dir")
+        have = {n for b in blocks for n in b.sites}
+        stale = sorted(set(report.bits()) - have)
+        if stale:
+            raise ValueError(
+                f"resume dir {resume_dir} holds allocation {report.name!r} "
+                f"for sites this model does not have (e.g. {stale[:3]}); "
+                "its rules would silently match nothing — re-probe with a "
+                "fresh checkpoint dir")
+        print(f"reusing recorded allocation from {resume_dir}:")
+    else:
+        report = auto_allocate(blocks, recipe, x0, Budget(kind, value),
+                               objective=objective, mesh=mesh)
+        if resume_dir is not None:
+            report.save(resume_dir)
+    print(report.pretty(), flush=True)
+    return recipe.with_rules(*report.rules()), report.meta()
 
 
 @torch.no_grad()

@@ -179,9 +179,7 @@ def test_serve_tokens_equal_the_reference_scheduler(runs):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "debug"], "item 11"), (["--multi-pod"], "item 11"),
-    (["--auto-bits", "4.5"], "item 10"), (["--budget", "bytes"], "item 10"),
-    (["--alloc-objective", "mse"], "item 10"), (["--analyze"], "item 15"),
-    (["--analyze-mem"], "item 15"),
+    (["--analyze"], "item 15"), (["--analyze-mem"], "item 15"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit) as e:
