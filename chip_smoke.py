@@ -18,11 +18,14 @@ last line is not printed):
               smollm-135m shapes (every site's (K, N), M in {4, 8, 9, 16,
               32, 64, 512}: both sides of the decode/mma threshold) and the
               llama4-scout 2-D shapes ((5120, 5120), (5120, 1024), (5120,
-              8192), (8192, 5120); M in {4, 16, 512}), plus ragged M, N and
+              8192), (8192, 5120); M in {4, 16, 512}) and qwen2.5-14b's MLP
+              shapes ((5120, 13824), (13824, 5120); M in {4, 512}: a
+              13824-deep contraction, 6912 packed code rows), plus ragged M, N and
               K and misaligned x and codes in both regimes, x in bfloat16
               and float32; each row names the regime the call took. K3
               (qmatmul_int8) at the smollm shapes (M in {4, 64, 512}), the
-              llama4 2-D shapes at M = 512 ((5120, 1024) splits K),
+              llama4 2-D and the qwen MLP shapes at M = 512 ((5120, 1024)
+              splits K),
               ragged (M = 7 and 130, K = 577, N = 200; M = 130, K = 4097,
               N = 200 in 2 splits), a_q and b_q off 16-byte alignment, and
               the envelope's edge (M = 64, K = 32768, N = 256, every code
@@ -129,6 +132,20 @@ last line is not printed):
               the replays, the engines and step captures, the peak device
               memory, the error sums beside the trained phase's, and
               serve tokens/s and decode ms per step.
+   Olmo     — olmo-1b at full width and depth (16 layers, d_model 2048,
+              16 heads = 16 KV heads, d_ff 8192, vocab 50304, untied head,
+              non-parametric LayerNorm: no norm keys in its tree), bf16,
+              weights from torch.Generator seed 0, through the launcher in
+              process with the trained phase's command (W4 body, W8 layers
+              0 and 15, A8, QDrop, TRAIN_ITERS iterations, --resume-dir,
+              --serve). Counters zeroed before and read after, split where
+              serving starts: the export must launch K1 and K3, serving K1
+              and K2; the error sum must fall below its start. Then the
+              export serves the 8 requests graphed and eagerly (identical
+              tokens and launches) and request 0 is re-run plain (5e-2
+              relative L2). Reports the launcher's seconds, steps/s, the
+              scheduler's decode ms per step and tokens/s, and
+              max_memory_allocated.
    Preempt  — the same recipe at PREEMPT_ITERS = 10 iterations: a launcher
               run without a break (export A); the same command in a
               subprocess with --resume-dir D, sent SIGKILL once D's
@@ -154,8 +171,26 @@ last line is not printed):
               routing, outputs within bfloat16 tolerance. Request 0 is
               re-run with the plain versions; the relative L2 of its logits
               and the number of routing decisions that differ are reported.
+6. Qwen path — qwen2.5-14b at full width (d_model 5120, 40 heads, 8 KV
+              heads, d_ff 13824, vocab 152064, QKV biases, rope theta 1e6,
+              untied head) and 4 of its 48 layers, bf16 (5.3 GB), weights
+              from torch.Generator seed 0: phase 4's export-only PTQ (W4
+              body, W8 layer 3, A8, mse observer) and serving runs; K1, K2
+              and K3 must launch, K1 and K2 in both regimes, graphed tokens
+              equal eager tokens, request 0 agrees with the plain versions.
+7. Loss     — ``model.loss`` (the chunked cross entropy, each chunk
+              recomputed in the backward) against an unchunked float32
+              ``cross_entropy`` over the same hidden states, in float32 at
+              full width: olmo-1b with 2 layers, B = 2, S = 1000 (two chunks
+              of 512, the second padded) and phi-3-vision-4.2b with 2 of its
+              32 layers and 256 random patch embeddings before 256 tokens.
+              The loss (relative 1e-5) and the gradients of the embedding,
+              the head and two of layer 1's weights (1e-4 of the largest)
+              must agree, and the chunked run must peak below the other in
+              max_memory_allocated.
 
-The line before the last is the JSON kernel summary (K1-K5); the last line
+Every phase logs its seconds. The line before the last is the JSON kernel
+summary (K1-K5, launches per path); the last line
 is ``{"ok": true, "device": {...}}``. A per-shape table goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -189,6 +224,14 @@ LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 LLAMA4_EXPERTS = ((5120, 8192), (8192, 5120))
 LLAMA4_E = 16
 LLAMA4_LAYERS = 4  # of 48: the bf16 weights of 4 layers take 21.8 GB
+# qwen2.5-14b's MLP sites: w_up/w_gate (5120, 13824) and w_down (13824,
+# 5120), a 13824-deep contraction (6912 packed code rows)
+QWEN_2D = ((5120, 13824), (13824, 5120))
+QWEN_LAYERS = 4  # of 48: 5.3 GB of bf16 weights, 1.56 GB of them the
+                 # untied embedding and head
+OLMO_LAST = 15   # olmo-1b's last layer, W8 in its launcher run
+# the loss phase: (arch, layers, batch, text tokens, patch embeddings)
+LOSS_RUNS = (("olmo-1b", 2, 2, 1000, 0), ("phi-3-vision-4.2b", 2, 2, 256, 256))
 # the launcher's default is 200 (repro/launch/quantize.py); the phase has
 # run 100 since the steps were eager (200 took 126 s on an H100, PERF.md),
 # and keeps 100 so that its numbers compare with those runs
@@ -715,6 +758,17 @@ def kernels_phase(torch):
                                               dtype == torch.bfloat16))
     for K, N in LLAMA4_2D:
         rows.append(check_int8(torch, k3, ref, 512, K, N, gen, timed=True))
+    # qwen2.5-14b's MLP sites: decode and export through both planners
+    for M in (4, 512):
+        for K, N in QWEN_2D:
+            for dtype in (torch.bfloat16, torch.float32):
+                for name in ("dequant_matmul_w4", "dequant_matmul_w8"):
+                    rows.append(check_dequant(torch, k12, ref, name, M, K, N,
+                                              dtype, gen,
+                                              dtype == torch.bfloat16))
+    for K, N in QWEN_2D:
+        rows.append(check_int8(torch, k3, ref, 512, K, N, gen, timed=True))
+    torch.cuda.empty_cache()
     # K5 at the expert stacks: decode / prefill (C = 4) and export (C = 40)
     for M in (4, 40):
         for K, N in LLAMA4_EXPERTS:
@@ -1098,14 +1152,21 @@ def recheck_request0(torch, model, qparams, recipe, astates, requests, outs,
             "routes": (res["auto"][1], res["torch"][1])}
 
 
-def path_phase(torch, np):
+def path_phase(torch, np, arch="smollm-135m", n_layers=None, w8_layers=(0, 29),
+               tag="smollm"):
+    """A dense path at full width (``n_layers`` of its layers, default all):
+    export-only PTQ (W4 body, W8 ``w8_layers``, A8) on 8 x 64 tokens, then
+    ``serve_phase``; the export must launch K1 and K3, serving K1 and K2,
+    and K1 and K2 each run in both regimes; request 0 is re-run plain."""
     from repro_torch.configs import get_config
     from repro_torch.core.context import QuantCtx
     from repro_torch.core.quant_config import QuantRecipe
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(0))
@@ -1113,15 +1174,18 @@ def path_phase(torch, np):
         0, cfg.vocab, (8, 64)), device=DEV)
     recipe = QuantRecipe(method="flexround", w_bits=4, a_bits=8,
                          w_granularity="per_channel", iters=0,
-                         rules=("layers.0.*:w_bits=8", "layers.29.*:w_bits=8"))
+                         rules=tuple(f"layers.{i}.*:w_bits=8"
+                                     for i in w8_layers))
     torch.cuda.synchronize()
-    log(f"path: smollm-135m ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.2f}s")
+    log(f"path: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}) initialised in "
+        f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated()} B")
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()  # the main path's run starts here
     fin, astates, export_s, errs, _ = export(torch, model, params, calib,
-                                             recipe, [0, 29])
+                                             recipe, list(w8_layers))
     export_counts = ops.launch_counts()
     log(f"export launches {export_counts}")
     if export_counts["dequant_matmul_w4"] == 0 or export_counts["qmatmul_int8"] == 0:
@@ -1129,11 +1193,11 @@ def path_phase(torch, np):
     qparams = dict(params, layers=list(fin))
     ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
     counts, requests, outs, stats = serve_phase(
-        torch, np, model, qparams, ctx, export_counts, "smollm")
+        torch, np, model, qparams, ctx, export_counts, tag)
     serve_counts = stats["serve_launches"]
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving did not launch K1 and K2: {serve_counts}")
-    require_regimes(counts, "the smollm path")
+    require_regimes(counts, f"the {cfg.name} path")
     peak = torch.cuda.max_memory_allocated()
     log(f"serve: hbm_per_slot_bytes {stats['hbm_per_slot_bytes']}, "
         f"max_memory_allocated {peak} B")
@@ -1156,15 +1220,15 @@ def path_phase(torch, np):
                         serve_launches=serve_counts, recheck=rc)
 
 
-def launcher_argv(iters: int):
-    """The launcher's recipe for the trained and preemption phases:
-    smollm-135m at full width and depth, W4 body, W8 layers 0 and 29, A8,
-    QDrop, 64 x 64 calibration tokens (``--calib``/``--seq`` defaults), the
-    launcher's lr 3e-3 and minibatches of min(16, calib) = 16."""
-    return ["--arch", "smollm-135m", "--w-bits", "4", "--a-bits", "8",
-            "--rule", "layers.0.*:w_bits=8", "--rule", "layers.29.*:w_bits=8",
-            "--setting", "qdrop", "--iters", str(iters), "--calib", "64",
-            "--seq", "64"]
+def launcher_argv(iters: int, arch: str = "smollm-135m", last: int = 29):
+    """The launcher's recipe for the trained, preemption and olmo phases:
+    ``arch`` at full width and depth, W4 body, W8 layers 0 and ``last``,
+    A8, QDrop, 64 x 64 calibration tokens (``--calib``/``--seq`` defaults),
+    the launcher's lr 3e-3 and minibatches of min(16, calib) = 16."""
+    return ["--arch", arch, "--w-bits", "4", "--a-bits", "8",
+            "--rule", "layers.0.*:w_bits=8", "--rule",
+            f"layers.{last}.*:w_bits=8", "--setting", "qdrop", "--iters",
+            str(iters), "--calib", "64", "--seq", "64"]
 
 
 def _first_curve_diff(np, a, b):
@@ -1286,6 +1350,41 @@ def recon_graph_phase(torch, np):
     return dict(res, errors=errs, profile=prof)
 
 
+def run_launcher(torch, argv):
+    """``repro_torch.launch.quantize.main(argv)`` in process with the launch
+    counters zeroed just before the call and read just after; its
+    ``serve_engine_run`` is wrapped to read them where the export ends and
+    serving begins. Returns (result, counts, export counts, serve counts,
+    export seconds, launcher seconds, max_memory_allocated)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as launcher
+
+    marks = {}
+    real_serve = launcher.serve_engine_run
+
+    def serve_engine_run(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["export"] = ops.launch_counts()
+        marks["export_s"] = time.perf_counter() - t0
+        return real_serve(*args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    launcher.serve_engine_run = serve_engine_run
+    try:
+        ops.reset_launch_counts()  # the launcher path's run starts here
+        t0 = time.perf_counter()
+        res = launcher.main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()  # the launcher path's run ends here
+        launcher_s = time.perf_counter() - t0
+    finally:
+        launcher.serve_engine_run = real_serve
+    export_counts = marks["export"]
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    return (res, counts, export_counts, serve_counts, marks["export_s"],
+            launcher_s, torch.cuda.max_memory_allocated())
+
+
 def trained_phase(torch, np, export_only_errs, path_serve_counts):
     """smollm-135m through the PTQ launcher, in process:
     ``repro_torch.launch.quantize.main`` with ``launcher_argv(TRAIN_ITERS)``,
@@ -1298,38 +1397,15 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     what the export-only path's graphed serving run did, kernel by kernel
     and regime by regime (the same requests at the same shapes)."""
     from repro_torch.core import reconstruct as rc
-    from repro_torch.kernels import ops
-    from repro_torch.launch import quantize as launcher
     from repro_torch.obs import compile_events
 
-    marks = {}
-    real_serve = launcher.serve_engine_run
     n_caps = len(compile_events.capture_seconds("recon.step"))
-
-    def serve_engine_run(*args, **kwargs):
-        torch.cuda.synchronize()
-        marks["export"] = ops.launch_counts()
-        marks["export_s"] = time.perf_counter() - t0
-        return real_serve(*args, **kwargs)
-
     argv = launcher_argv(TRAIN_ITERS) + [
         "--resume-dir", str(RUNS_DIR / "trained_ckpt"),
         "--out", str(RUNS_DIR / "trained_export"), "--serve"]
     log("trained: python -m repro_torch.launch.quantize " + " ".join(argv))
-    torch.cuda.reset_peak_memory_stats()
-    launcher.serve_engine_run = serve_engine_run
-    try:
-        ops.reset_launch_counts()  # the trained path's run starts here
-        t0 = time.perf_counter()
-        res = launcher.main(argv)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()  # the trained path's run ends here
-        launcher_s = time.perf_counter() - t0
-    finally:
-        launcher.serve_engine_run = real_serve
-    export_counts, export_s = marks["export"], marks["export_s"]
-    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
-    peak = torch.cuda.max_memory_allocated()
+    (res, counts, export_counts, serve_counts, export_s, launcher_s,
+     peak) = run_launcher(torch, argv)
     reports = res.reports
     errs = [(r.err_before, r.err_after) for r in reports]
     n_layers = res.cfg.n_layers
@@ -2039,6 +2115,210 @@ def moe_path_phase(torch, np):
         export_launches=export_counts, serve_launches=serve_counts,
         k4_launches=k4_counts, block_check=blocks, recheck=rc)
 
+def olmo_phase(torch, np):
+    """olmo-1b at full width and depth (16 layers, d_model 2048, 16 heads =
+    16 KV heads, d_ff 8192, vocab 50304, untied head, non-parametric
+    LayerNorm, bfloat16) through the launcher, in process: the trained
+    phase's command (``launcher_argv``: W4 body, W8 layers 0 and 15, A8,
+    QDrop, TRAIN_ITERS iterations, per-block checkpoints, ``--serve``).
+    Counters zeroed before the call and read after it (split where serving
+    starts): the export must launch K1 and K3, serving K1 and K2. The error
+    sum must fall below its start. Then the export serves the 8 requests of
+    ``serve_requests`` through the graphed engine and the eager one
+    (identical tokens and launches), and request 0 is re-run plain."""
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.kernels import ops
+
+    argv = launcher_argv(TRAIN_ITERS, "olmo-1b", OLMO_LAST) + [
+        "--resume-dir", str(RUNS_DIR / "olmo_ckpt"),
+        "--out", str(RUNS_DIR / "olmo_export"), "--serve"]
+    log("olmo: python -m repro_torch.launch.quantize " + " ".join(argv))
+    (res, counts, export_counts, serve_counts, export_s, launcher_s,
+     peak) = run_launcher(torch, argv)
+    cfg, qparams, reports = res.cfg, res.qparams, res.reports
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+             cfg.vocab, cfg.norm, cfg.tie_embeddings, cfg.dtype)
+    if shape != (16, 2048, 16, 16, 8192, 50304, "layernorm_nonparam", False,
+                 "bfloat16") or "final_norm" in qparams or any(
+                     k in layer for layer in qparams["layers"]
+                     for k in ("ln1", "ln2")):
+        fail(f"olmo: config {shape} or a norm key in its tree")
+    got_w8 = sorted(i for i, layer in enumerate(qparams["layers"])
+                    if any(qt.bits == 8 for qt in _qtensors(layer)))
+    errs = [(r.err_before, r.err_after) for r in reports]
+    before = sum(a for a, _ in errs)
+    after = sum(b for _, b in errs)
+    steps = sum(r.iters for r in reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in reports)
+    log(f"olmo: launcher {launcher_s:.2f}s, {steps} steps, export (to the "
+        f"serve run) {export_s:.2f}s, {loop_s:.2f}s in the Adam loops, "
+        f"{steps / loop_s:.1f} steps/s, max_memory_allocated {peak} B")
+    log("olmo err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
+    log(f"olmo: sum of err_before {before:.6e}, sum of err_after {after:.6e}")
+    if got_w8 != [0, OLMO_LAST] or len(reports) != cfg.n_layers or not all(
+            math.isfinite(a) and math.isfinite(b) for a, b in errs) or \
+            not after < before:
+        fail(f"olmo: W8 layers {got_w8}, {len(reports)} reports, errors "
+             f"{before} -> {after}")
+    log(f"olmo export launches {export_counts}")
+    log(f"olmo serve launches {serve_counts}")
+    if export_counts["dequant_matmul_w4"] == 0 or export_counts["qmatmul_int8"] == 0:
+        fail(f"olmo export did not launch K1 and K3: {export_counts}")
+    if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
+        fail(f"serving olmo did not launch K1 and K2: {serve_counts}")
+    served = res.serve
+    st, outs = served["stats"], served["outputs"]
+    n_tok = sum(len(v) for v in outs.values())
+    sched = {"serve_s": served["seconds"],
+             "tokens_per_s": n_tok / served["seconds"],
+             "decode_steps": st["decode_steps"],
+             "decode_ms_per_step": st["requests"]["decode_step_us"]["mean"] / 1e3,
+             "compile_count": st["compile_count"],
+             "hbm_per_slot_bytes": st["hbm_per_slot_bytes"]}
+    log(f"olmo serve (scheduler): {n_tok} tokens in {served['seconds']:.3f}s "
+        f"-> {sched['tokens_per_s']:.1f} tokens/s, {st['decode_steps']} decode "
+        f"steps of {sched['decode_ms_per_step']:.2f} ms (mean), compile_count "
+        f"{st['compile_count']}")
+    if st["compile_count"] != 4:
+        fail(f"olmo serve: compile_count {st['compile_count']}")
+
+    ctx = QuantCtx(mode="deploy", recipe=res.recipe, astates=res.astates)
+    before_c = ops.launch_counts()
+    requests, outs_g, graphed, _ = run_engine(torch, np, res.model, qparams,
+                                              ctx)
+    after_c = ops.launch_counts()
+    graphed_counts = {k: after_c[k] - before_c[k] for k in after_c}
+    eager, _ = compare_eager(torch, np, res.model, qparams, ctx, outs_g,
+                             graphed_counts)
+    rc = recheck_request0(torch, res.model, qparams, res.recipe, res.astates,
+                          requests, outs_g)
+    rc.pop("routes")
+    log(f"olmo: torch backend re-run of request 0: logits relative L2 diff "
+        f"{rc['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
+        f"{rc['max_abs_diff']:.4e}; greedy tokens {rc['greedy_agree']}/"
+        f"{rc['n_tokens']} identical")
+    if not math.isfinite(rc["rel_l2"]) or rc["rel_l2"] > 5e-2 or not rc["ties_ok"]:
+        fail("olmo: kernel and plain-version serving disagree beyond bf16 "
+             "tolerance")
+    return counts, dict(
+        sched, argv=argv, launcher_s=launcher_s, export_s=export_s,
+        loop_s=loop_s, steps=steps, steps_per_s=steps / loop_s,
+        max_memory_allocated=peak, err=errs, err_before_sum=before,
+        err_after_sum=after, export_launches=export_counts,
+        serve_launches=serve_counts, graphed=graphed, eager=eager, recheck=rc)
+
+
+def plain_loss(torch, model, params, batch, ctx):
+    """The loss without chunks: the same backbone, then the logits of every
+    position at once in float32 and ``torch.nn.functional.cross_entropy``,
+    with the prefix masked and the labels left-padded as ``model.loss``
+    does; plus 0.01 x the aux loss."""
+    F = torch.nn.functional
+    cfg = model.cfg
+    pe = batch.get("patch_embeds")
+    x, aux, _ = model.backbone(params, batch["tokens"], ctx, pe)
+    labels = batch["labels"]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=DEV)
+    if pe is not None:
+        P = pe.shape[1]
+        labels = F.pad(labels, (P, 0))
+        mask = F.pad(mask, (P, 0))
+    logits = (x.float() @ model.lm_head(params).float()) * cfg.logit_mult
+    ce = F.cross_entropy(logits.reshape(-1, cfg.vocab), labels.reshape(-1),
+                         reduction="none")
+    return (ce * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0) + 0.01 * aux
+
+
+def loss_phase(torch, np):
+    """``model.loss`` (the chunked cross entropy, each chunk recomputed in
+    the backward) against ``plain_loss`` on the same weights and inputs, at
+    full width in float32 (no TF32): olmo-1b with 2 layers, B = 2, S = 1000
+    (two chunks of 512, the second padded and masked), and
+    phi-3-vision-4.2b with 2 of its 32 layers and 256 random patch
+    embeddings in front of 256 tokens (512 positions: one chunk). Compared:
+    the loss (relative 1e-5) and the gradients of the embedding, the head
+    and layer 1's wq and w_down (largest |difference| at most 1e-4 of the
+    largest |gradient| of each; both sides sum float32 products in other
+    orders, ~1e-6, where a wrong chunk or mask is off by 1e-2 or more), and
+    max_memory_allocated of each run from the same start: the chunked run
+    must peak below the unchunked one (at one chunk too: it keeps no
+    logits from its forward, and ``cross_entropy`` keeps its
+    log-softmax)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.models.model import build_model
+    out = []
+    for arch, n_layers, B, S, P in LOSS_RUNS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  dtype="float32")
+        model = build_model(cfg)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        params = model.init(gen)
+        rng = np.random.default_rng(1)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                    device=DEV) for k in ("tokens", "labels")}
+        if P:
+            batch["patch_embeds"] = torch.randn((B, P, cfg.d_model),
+                                                generator=gen, device=DEV)
+        watched = {"embed": params["embed"], "lm_head": params["lm_head"],
+                   "layers.1.attn.wq": params["layers"][1]["attn"]["wq"],
+                   "layers.1.mlp.w_down": params["layers"][1]["mlp"]["w_down"]}
+        leaves = [params["embed"], params["lm_head"]] + [
+            t for layer in params["layers"] for grp in layer.values()
+            for t in grp.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        ctx = QuantCtx(mode="fp")
+        runs = {}
+        for tag, fn in (("chunked", lambda: model.loss(params, batch, ctx)[0]),
+                        ("plain", lambda: plain_loss(torch, model, params,
+                                                     batch, ctx))):
+            for t in leaves:
+                t.grad = None
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = fn()
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            grads = {k: v.grad.detach().clone() for k, v in watched.items()}
+            runs[tag] = (loss.item(), grads, peak, seconds)
+            del loss
+        (lc, g_c, pc, sc), (lp, g_p, pp, sp) = runs["chunked"], runs["plain"]
+        rel = abs(lc - lp) / abs(lp)
+        gdiff = {k: ((g_c[k] - g_p[k]).abs().max() / g_p[k].abs().max()).item()
+                 for k in watched}
+        n_chunks = -(-(S + P) // cfg.xent_chunk)
+        log(f"loss [{arch}, {n_layers} layers, B={B}, S={S}, P={P}, vocab "
+            f"{cfg.vocab}, {n_chunks} chunk(s) of {cfg.xent_chunk}]: chunked "
+            f"{lc:.6f} in {sc:.3f}s, plain {lp:.6f} in {sp:.3f}s, relative "
+            f"difference {rel:.3e} (tolerance 1e-5); largest gradient "
+            f"difference over the largest gradient: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gdiff.items())
+            + f" (tolerance 1e-4); max_memory_allocated chunked {pc} B, "
+            f"plain {pp} B")
+        if not (math.isfinite(lc) and rel <= 1e-5
+                and all(v <= 1e-4 for v in gdiff.values())):
+            fail(f"loss [{arch}]: the chunked loss or its gradients disagree "
+                 "with the plain cross entropy")
+        if not pc < pp:
+            fail(f"loss [{arch}]: the chunked run peaked at {pc} B, not below "
+                 f"the unchunked run's {pp} B")
+        out.append({"arch": arch, "layers": n_layers, "B": B, "S": S, "P": P,
+                    "chunks": n_chunks, "loss": lc, "plain_loss": lp,
+                    "rel_diff": rel, "grad_rel_diff": gdiff,
+                    "peak_chunked": pc, "peak_plain": pp,
+                    "seconds_chunked": sc, "seconds_plain": sp})
+        del params, leaves, watched, runs, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 def _timed_row(rows, name):
     t = TIMED[name]
@@ -2117,8 +2397,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    olmo_counts, olmo = olmo_phase(torch, np)
+    log(f"olmo-1b launcher phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     moe_counts, k4_counts, moe_path = moe_path_phase(torch, np)
     log(f"MoE path phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qwen_counts, qwen_path = path_phase(torch, np, "qwen2.5-14b", QWEN_LAYERS,
+                                        (QWEN_LAYERS - 1,), "qwen")
+    log(f"qwen2.5-14b path phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss = loss_phase(torch, np)
+    log(f"loss phase: {time.perf_counter() - t0:.1f}s")
 
     summary = []
     for name in KERNEL_NAMES:
@@ -2127,7 +2424,9 @@ def main() -> int:
         by_path = {"smollm-135m": counts[name],
                    "smollm-135m-trained": trained_counts[name],
                    "smollm-135m-auto-bits": auto_counts[name],
+                   "olmo-1b-trained": olmo_counts[name],
                    "llama4-scout-17b-a16e": moe_counts[name],
+                   "qwen2.5-14b": qwen_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
@@ -2155,7 +2454,8 @@ def main() -> int:
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
          "recon_graphs": recon_graphs, "trained_path": trained,
          "preemption": preemption, "auto_bits_path": auto_bits,
-         "moe_path": moe_path}, indent=1))
+         "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
+         "loss": loss}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

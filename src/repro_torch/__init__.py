@@ -14,8 +14,10 @@ tensors and their plain PyTorch versions for CPU tensors; nothing falls back
 from one to the other.
 
 Ported so far (see ROADMAP.md): FlexRound PTQ with its Adam loop and the
-baseline methods for the dense and MoE decoders, the slot-based serving
-engine over the int8 KV cache with its scheduler, and the launcher
-``python -m repro_torch.launch.quantize`` with its calibration data,
-per-block checkpoints and telemetry.
+baseline methods for the dense, vlm and MoE decoders (smollm-135m,
+granite-3-2b, qwen2.5-14b, olmo-1b, phi-3-vision-4.2b,
+llama4-scout-17b-a16e), ``model.loss``, conv sites, automatic bit
+allocation, the slot-based serving engine over the int8 KV cache with its
+scheduler, and the launcher ``python -m repro_torch.launch.quantize`` with
+its calibration data, per-block checkpoints and telemetry.
 """

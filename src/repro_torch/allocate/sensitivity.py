@@ -126,6 +126,9 @@ class _ProbeCtx:
         return self._fp.linear(name, x, self._gated(name, w), b,
                                batch_dims=batch_dims)
 
+    def conv2d(self, name, x, w, b=None, **kwargs):
+        return self._fp.conv2d(name, x, self._gated(name, w), b, **kwargs)
+
     def get_weight(self, name, w, batch_dims=0):
         return self._gated(name, w)
 
@@ -227,8 +230,8 @@ def _site_bytes(w: torch.Tensor, state: Dict[str, torch.Tensor], bits: int,
 
 def _fisher_proxy(dw: torch.Tensor, m2: Optional[torch.Tensor]) -> float:
     """sum_i E[x_i^2] sum_j dW_ij^2 / d_out with the input-feature axis at
-    -2 (linear (d_in, d_out) and stacked experts (E, d_in, d_out) store it
-    there). ``m2`` is the captured per-feature second moment; None (site
+    -2 (linear (d_in, d_out), conv (kh, kw, cin, cout) and stacked
+    experts (E, d_in, d_out) store it there). ``m2`` is the captured per-feature second moment; None (site
     never exercised by the capture pass) degrades to an unweighted squared
     error."""
     dw32 = dw.float()

@@ -1,8 +1,8 @@
 """ArchConfig: one dataclass describing every assigned architecture.
 
 A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``).
-The dense and moe families are ported so far, but the dataclass keeps every
-field so configs stay field-for-field comparable with the reference.
+The dense, moe and vlm families are ported so far, but the dataclass keeps
+every field so configs stay field-for-field comparable with the reference.
 """
 from __future__ import annotations
 
@@ -87,7 +87,7 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink a config to smoke-test size, preserving structure (the
-    reference's ``reduced``, dense and moe branches)."""
+    reference's ``reduced``, its dense, moe and vlm branches)."""
     changes = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -104,13 +104,15 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         remat=False,
         dtype="float32",
     )
-    if cfg.family not in ("dense", "moe"):
-        raise KeyError(f"{cfg.name}: family {cfg.family!r} is not ported yet, "
-                       "see ROADMAP")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise KeyError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                       "(ROADMAP Queue 1 item 9)")
     if cfg.is_moe:
         # capacity_factor=8 makes the reduced config dropless so decode vs
         # full-forward consistency is exact (production keeps 1.25 + drops)
         changes.update(n_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=64,
                        first_dense=min(cfg.first_dense, 1),
                        capacity_factor=8.0)
+    if cfg.n_patches:
+        changes.update(n_patches=8)
     return dataclasses.replace(cfg, **changes)

@@ -1,8 +1,8 @@
 """QuantCtx — the single integration point between models and quantization
 (port of ``repro/core/context.py``).
 
-Every linear in the model routes through ``ctx.linear``. Depending on
-``mode`` the same model code runs:
+Every linear in the model routes through ``ctx.linear``, every convolution
+through ``ctx.conv2d``. Depending on ``mode`` the same model code runs:
 
   fp       plain full-precision math (the teacher stream, fp serving)
   calib    record activation ranges per site (LSQ init)
@@ -27,19 +27,69 @@ its exact name. The serving engine names its sites ``layers.wq`` (no layer
 index) while astates are keyed ``layers.<i>.wq``, so it serves W8A8 and
 W4A8 checkpoints as W8A16 and W4A16 — the reference does the same, and the
 port mirrors it.
+
+Conv QTensors dequantize in deploy mode: neither package has a conv
+kernel. Each such site warns once per process with its shape, bits and
+bytes, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import warnings
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import lsq, qdrop
 from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
 
 MODES = ("fp", "calib", "capture", "recon", "deploy")
+
+# conv sites that already warned about the deploy dequantize (once per
+# process, not once per call)
+_CONV_FALLBACK_WARNED: set = set()
+
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def _warn_conv_fallback(name: str, qt: QTensor) -> None:
+    if name in _CONV_FALLBACK_WARNED:
+        return
+    _CONV_FALLBACK_WARNED.add(name)
+    from repro_torch.core.qtensor import tree_weight_bytes
+    warnings.warn(
+        f"deploy conv site {name!r}: no conv kernel for QTensor shape "
+        f"{qt.shape} ({qt.bits}-bit, {tree_weight_bytes(qt)} bytes) — "
+        "dequantizing per call (correct but unaccelerated, as in the "
+        "reference)", RuntimeWarning, stacklevel=3)
+
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's "SAME": the output has ceil(size / s) positions; the padding
+    they need is split with the smaller half before (asymmetric for even
+    k or stride > 1, which torch's padding="same" does not offer)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
+                padding: Padding = "SAME") -> torch.Tensor:
+    """``lax.conv_general_dilated`` with NHWC x, HWIO w and NHWC out;
+    ``padding`` "SAME", "VALID" or ((top, bottom), (left, right))."""
+    kh, kw = w.shape[0], w.shape[1]
+    sh, sw = stride
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = (_same_pads(x.shape[1], kh, sh),
+                              _same_pads(x.shape[2], kw, sw))
+    elif padding == "VALID":
+        pt = pb = pl = pr = 0
+    else:
+        (pt, pb), (pl, pr) = padding
+    xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=(sh, sw))
+    return y.permute(0, 2, 3, 1)
 
 
 @dataclasses.dataclass
@@ -141,6 +191,23 @@ class QuantCtx:
                 y = x_eff @ w_eff
             else:
                 y = torch.einsum("...eni,eio->...eno", x_eff, w_eff)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y
+
+    def conv2d(self, name: str, x: torch.Tensor, w: Any,
+               b: Optional[torch.Tensor] = None, stride=(1, 1),
+               padding: Padding = "SAME") -> torch.Tensor:
+        """x: (N, H, W, Cin), w: (kh, kw, Cin, Cout). Runs in every mode
+        (capture records x; recon fake-quantizes both operands); a deploy
+        conv QTensor dequantizes and its site warns once per process."""
+        if self.mode == "capture":
+            self.records.setdefault(name, []).append(x)
+        if self.mode == "deploy" and isinstance(w, QTensor):
+            _warn_conv_fallback(name, w)
+        x_eff = self._act(name, x)
+        w_eff = self._weight(name, w, 0)
+        y = conv2d_nhwc(x_eff, w_eff.to(x_eff.dtype), stride, padding)
         if b is not None:
             y = y + b.to(y.dtype)
         return y

@@ -113,7 +113,7 @@ Key = Union[None, int, torch.Generator]
 class Site:
     """One quantizable weight inside a block."""
     path: Tuple  # path of the leaf within the block's param subtree
-    kind: str = "linear"
+    kind: str = "linear"  # linear | conv
     batch_dims: int = 0
 
 
@@ -302,6 +302,9 @@ class _RenameCtx:
 
     def linear(self, name, *args, **kwargs):
         return self._ctx.linear(self._map.get(name, name), *args, **kwargs)
+
+    def conv2d(self, name, *args, **kwargs):
+        return self._ctx.conv2d(self._map.get(name, name), *args, **kwargs)
 
     def get_weight(self, name, *args, **kwargs):
         return self._ctx.get_weight(self._map.get(name, name), *args, **kwargs)
@@ -776,19 +779,21 @@ def count_probe_compile() -> None:
 @torch.no_grad()
 def _explode_layerwise(block: BlockHandle, recipe: QuantRecipe, x_q):
     """Per-site sub-blocks for recon='layer': one capture pass records every
-    site's input; each site becomes a standalone linear problem."""
+    site's input; each site becomes a standalone linear or conv problem
+    (a conv site with the reference's stride 1 and "SAME" padding)."""
     ctx_q = QuantCtx(mode="capture", recipe=recipe)
     block.apply(block.params, x_q, ctx_q)
     subs = []
     for name, site in block.sites.items():
-        if site.kind != "linear":
-            raise ValueError(f"site {name!r}: layer-wise reconstruction of "
-                             f"{site.kind!r} sites is not ported")
         x_site = ctx_q.records[name][0]
         w = pth.get_path(block.params, site.path)
 
-        def apply_fn(p, x, ctx, _n=name, _bd=site.batch_dims):
-            return ctx.linear(_n, x, p["w"], batch_dims=_bd)
+        if site.kind == "conv":
+            def apply_fn(p, x, ctx, _n=name):
+                return ctx.conv2d(_n, x, p["w"])
+        else:
+            def apply_fn(p, x, ctx, _n=name, _bd=site.batch_dims):
+                return ctx.linear(_n, x, p["w"], batch_dims=_bd)
 
         sub = BlockHandle(name=f"{block.name}/{name}", params={"w": w},
                           apply=apply_fn,

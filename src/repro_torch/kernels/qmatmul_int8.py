@@ -26,15 +26,16 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.envelope import get_envelope
 
 _LIB = CudaLibrary("qmatmul_int8.cu", {
     "qmatmul_int8": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "qmatmul_int8_init": []}, init="qmatmul_int8_init")
 
-# the reference's verified envelope (kernels/envelope.py _K_MAX); the int32
+# the verified envelope of the w8a8 layout (kernels/envelope.py); the int32
 # accumulator is exact well beyond it (|acc| <= 128*128*K < 2^31)
-K_MAX = 32768
+K_MAX = get_envelope("w8a8").k_max
 _MAX_GRID_Y = 65535
 
 # csrc/qmatmul_int8.cu

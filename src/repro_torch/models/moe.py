@@ -30,11 +30,12 @@ def moe_params(gen: torch.Generator, cfg, dtype, device) -> dict:
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     p = {
         "router": common.normal(gen, (D, E), D**-0.5, torch.float32, device),
-        "experts": common.mlp_params(gen, D, Fd, dtype, device, lead=(E,)),
+        "experts": common.mlp_params(gen, D, Fd, cfg.act, dtype, device,
+                                      lead=(E,)),
     }
     if cfg.n_shared_experts:
         p["shared"] = common.mlp_params(gen, D, Fd * cfg.n_shared_experts,
-                                        dtype, device)
+                                        cfg.act, dtype, device)
     return p
 
 

@@ -1,17 +1,20 @@
-"""Decoder-only transformer LM, dense and moe families (port of
+"""Decoder-only transformer LM, the dense, moe and vlm families (port of
 ``repro/models/transformer.py``).
 
 Parameters are a plain dict with the reference's keys; ``layers`` is a
 Python list of per-layer dicts (a plain loop replaces the reference's
 ``lax.scan``). Every matmul routes through ``QuantCtx``, so the same code
 runs the fp teacher, LSQ calibration, the recon forward and int-weight
-serving. Caches are dicts of tensors written in place.
+serving. Caches are dicts of tensors written in place. A norm without
+parameters (``layernorm_nonparam``) has no key in the tree (no ``ln1``,
+``ln2`` or ``final_norm``), as in the reference; ``p.get`` then gives None.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.reconstruct import BlockHandle, Site
@@ -46,24 +49,26 @@ def _layer_params(gen, cfg, dtype, device, kind: str) -> dict:
         },
         "ln2": common.norm_params(cfg.norm, D, dtype, device),
         "mlp": (moe.moe_params(gen, cfg, dtype, device) if kind == "moe"
-                else common.mlp_params(gen, D, cfg.d_ff, dtype, device)),
+                else common.mlp_params(gen, D, cfg.d_ff, cfg.act, dtype,
+                                       device)),
     }
     if cfg.attn_bias:
         for nm, width in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
             p["attn"][nm] = torch.zeros((width,), dtype=dtype, device=device)
-    return p
+    return {k: v for k, v in p.items() if v is not None}
 
 
 class TransformerLM:
     def __init__(self, cfg):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and moe families are ported, "
-                "see ROADMAP")
-        if cfg.use_mla or cfg.first_dense > 0:
+                f"{cfg.name}: only the dense, moe and vlm families are "
+                "ported (ROADMAP Queue 1 item 9)")
+        if cfg.use_mla or cfg.first_dense > 0 or cfg.mtp:
             raise NotImplementedError(
-                f"{cfg.name}: MLA attention and leading dense layers "
-                "(deepseek-v3) are not ported yet, see ROADMAP")
+                f"{cfg.name}: MLA attention, leading dense layers and the "
+                "mtp head (deepseek-v3) are not ported yet (ROADMAP Queue 1 "
+                "item 9.2)")
         self.cfg = cfg
         self.kind = "moe" if cfg.is_moe else "dense"
 
@@ -82,6 +87,8 @@ class TransformerLM:
             "layers": [_layer_params(generator, cfg, dtype, dev, self.kind)
                        for _ in range(cfg.n_layers)],
         }
+        if params["final_norm"] is None:
+            del params["final_norm"]
         if not cfg.tie_embeddings:
             params["lm_head"] = common.normal(
                 generator, (cfg.d_model, cfg.vocab), cfg.d_model**-0.5, dtype,
@@ -127,12 +134,16 @@ class TransformerLM:
 
     # ----------------------------------------------------------- forward
     def backbone(self, params, tokens: torch.Tensor, ctx: QuantCtx,
+                 extra_embeds: Optional[torch.Tensor] = None,
                  collect_kv: bool = False):
-        """tokens (B, S) -> (hidden (B, S, D), summed aux loss, per-layer
-        [(k, v)] or None). Sites are named ``layers.<site>`` (no layer
-        index), as in the reference's scanned forward."""
+        """tokens (B, S) [+ (B, P, D) prefix embeddings, e.g. image patches]
+        -> (hidden (B, P + S, D), summed aux loss, per-layer [(k, v)] or
+        None). Sites are named ``layers.<site>`` (no layer index), as in the
+        reference's scanned forward."""
         cfg = self.cfg
         x = common.embed_tokens(params["embed"], tokens, cfg.emb_mult)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
         sin, cos = self._rope(pos)
@@ -154,6 +165,28 @@ class TransformerLM:
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """(..., D) hidden -> (..., V) logits in the hidden's dtype."""
         return (x @ self.lm_head(params).to(x.dtype)) * self.cfg.logit_mult
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], ctx: QuantCtx
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token loss of ``batch`` (``tokens``, ``labels``, optional
+        ``mask`` and ``patch_embeds`` (B, P, D)): the chunked cross entropy
+        plus 0.01 x the MoE aux loss. With patch embeddings the labels are
+        left-padded by P and the P prefix positions masked out. Returns
+        (total, {"ce", "aux"})."""
+        cfg = self.cfg
+        pe = batch.get("patch_embeds")
+        x, aux, _ = self.backbone(params, batch["tokens"], ctx, pe)
+        mask = batch.get("mask")
+        labels = batch["labels"]
+        if pe is not None:
+            P = pe.shape[1]
+            mask = F.pad(mask.float() if mask is not None else
+                         torch.ones(labels.shape, dtype=torch.float32,
+                                    device=x.device), (P, 0))
+            labels = F.pad(labels, (P, 0))
+        ce = common.fused_cross_entropy(x, self.lm_head(params), labels, mask,
+                                        cfg.xent_chunk, cfg.logit_mult)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, dtype=None,
@@ -177,13 +210,16 @@ class TransformerLM:
                 "v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
 
     def prefill(self, params, tokens: torch.Tensor, cache, ctx: QuantCtx,
+                extra_embeds: Optional[torch.Tensor] = None,
                 true_len: Optional[torch.Tensor] = None):
-        """Run the full sequence and fill ``cache[:, :, :S]`` in place;
-        returns (last hidden (B, 1, D), cache). ``true_len`` (B,) marks each
-        row's real prompt length inside a right-padded bucket: the hidden is
-        gathered at ``true_len - 1``."""
-        x, _, kvs = self.backbone(params, tokens, ctx, collect_kv=True)
-        S = tokens.shape[1]
+        """Run the full sequence (after the ``extra_embeds`` prefix, if any)
+        and fill ``cache[:, :, :S]`` in place; returns (last hidden
+        (B, 1, D), cache). ``true_len`` (B,) marks each row's real length
+        inside a right-padded bucket: the hidden is gathered at
+        ``true_len - 1``."""
+        x, _, kvs = self.backbone(params, tokens, ctx, extra_embeds,
+                                  collect_kv=True)
+        S = x.shape[1]
         for li, (k, v) in enumerate(kvs):
             if "k_scale" in cache:
                 for nm, t in (("k", k), ("v", v)):
@@ -249,8 +285,11 @@ class TransformerLM:
         if kind == "moe":
             sites.update(moe.moe_sites("layers", self.cfg))
         else:
-            sites.update({f"layers.mlp.{n}": Site(("mlp", n))
-                          for n in ("w_up", "w_down", "w_gate")})
+            # w_gate is a site for swiglu only, as in the reference (a
+            # geglu gate stays fp)
+            names = ["w_up", "w_down"] + (["w_gate"] if self.cfg.act == "swiglu"
+                                          else [])
+            sites.update({f"layers.mlp.{n}": Site(("mlp", n)) for n in names})
         return sites
 
     def quant_blocks(self, params, batch_tokens: torch.Tensor

@@ -33,7 +33,10 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.data.pipeline", "repro_torch.checkpoint",
                "repro_torch.checkpoint.checkpoint", "repro_torch.launch",
                "repro_torch.launch.quantize", "repro_torch.obs.profiler",
-               "repro_torch.obs.compile_events")
+               "repro_torch.obs.compile_events", "repro_torch.kernels.envelope",
+               "repro_torch.configs.granite_3_2b",
+               "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.olmo_1b",
+               "repro_torch.configs.phi3_vision_4_2b")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -78,6 +81,14 @@ def _check_defaults_to_cuda(monkeypatch, arch):
 
 
 def test_unported_architectures_raise():
-    from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="not ported yet, see ROADMAP"):
-        get_config("qwen2.5-14b")
+    """The families still to port raise naming their ROADMAP item (9); the
+    vlm family and the remaining dense configs are ported."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    for name in ("deepseek-v3-671b", "whisper-medium", "mamba2-130m",
+                 "recurrentgemma-2b"):
+        with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 "
+                                           r"item 9"):
+            get_config(name)
+    assert set(ARCH_IDS) == {"qwen2.5-14b", "smollm-135m", "granite-3-2b",
+                             "olmo-1b", "llama4-scout-17b-a16e",
+                             "phi-3-vision-4.2b"}
