@@ -3,8 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one card with about 50 GB of free device memory (the llama4-scout
-path). Phases, each fatal on failure (the exit code is non-zero and the
+Needs one card of 80 GB (the deepseek-v3 path peaks below 75 GB). Phases, each fatal on failure (the exit code is non-zero and the
 last line is not printed):
 
 1. Device   — require CUDA; print the card's name and power limit.
@@ -178,7 +177,32 @@ last line is not printed):
               body, W8 layer 3, A8, mse observer) and serving runs; K1, K2
               and K3 must launch, K1 and K2 in both regimes, graphed tokens
               equal eager tokens, request 0 agrees with the plain versions.
-7. Loss     — ``model.loss`` (the chunked cross entropy, each chunk
+7. Deepseek — deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA
+              with q rank 1536 and kv rank 512, d_ff 18432, 256 experts
+              top-8 of width 2048, a shared expert, vocab 129280) and 4 of
+              its 61 layers (the 3 leading dense layers and 1 MoE layer,
+              30.2 GB of bf16), no mtp head, weights from torch.Generator
+              seed 0: block 0 (dense MLA) reconstructed for 100 FlexRound
+              iterations (W4A8, QDrop) graphed and with graphs=False, equal
+              bit for bit and its error falling; export-only PTQ (W4 body,
+              W8 layer 0, A8, mse observer, RTN on the expert stacks) and
+              the launcher's serve_smoke (batch 2, 16 prompt tokens, 8
+              steps through the absorbed decode), counters zeroed before
+              and read after: K1, K2, K3 and K5 (packed, mma at the export
+              and decode in serving) must launch; the prompt decoded
+              greedily with the kernels and re-run along the same tokens
+              with the plain versions; the slot engine and the int8 cache
+              must refuse MLA; max_memory_allocated below 80 GB. Then
+              ``model.loss`` with the mtp head on the reduced config
+              against an unchunked float32 cross entropy, and the reduced
+              config through the launcher (QDrop W4A8, --serve-smoke
+              --serve; as in Preempt, a launcher subprocess SIGKILLed
+              after block 0's checkpoint, resumed in process, equals an
+              unbroken run bit for bit). The kernels phase adds
+              K1/K2 at deepseek's 2-D sites (M 2, 32, 512), K3 at M 512 and
+              K5 at E = 256 (2 tokens top-8: 16 active experts, M 4; and
+              the export's M 32).
+8. Loss     — ``model.loss`` (the chunked cross entropy, each chunk
               recomputed in the backward) against an unchunked float32
               ``cross_entropy`` over the same hidden states, in float32 at
               full width: olmo-1b with 2 layers, B = 2, S = 1000 (two chunks
@@ -230,6 +254,21 @@ QWEN_2D = ((5120, 13824), (13824, 5120))
 QWEN_LAYERS = 4  # of 48: 5.3 GB of bf16 weights, 1.56 GB of them the
                  # untied embedding and head
 OLMO_LAST = 15   # olmo-1b's last layer, W8 in its launcher run
+# deepseek-v3-671b: 4 of 61 layers (the 3 leading dense layers and 1 MoE
+# layer: 30.2 GB of bf16 weights); its 2-D sites (MLA's wq_a, wq_b, wkv_a,
+# wkv_b, wo; the dense MLP; the shared expert) and expert stacks
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_2D = ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
+               (16384, 7168), (7168, 18432), (18432, 7168), (7168, 2048),
+               (2048, 7168))
+DEEPSEEK_EXPERTS = ((7168, 2048), (2048, 7168))
+DEEPSEEK_E = 256
+# block 0's graphed-vs-eager reconstruction at the launcher's lr 3e-3: the
+# first Adam step moves each s1 by ~lr, about half of a 4-bit grid step of
+# these weights, and raises the error ~7x; on an H100 20 steps still end
+# above the start (0.067 -> 0.132), 100 end at a third of it (0.021)
+DEEPSEEK_RECON_ITERS = 100
+DEEPSEEK_SMOKE_ITERS = 100  # the reduced config through the launcher
 # the loss phase: (arch, layers, batch, text tokens, patch embeddings)
 LOSS_RUNS = (("olmo-1b", 2, 2, 1000, 0), ("phi-3-vision-4.2b", 2, 2, 256, 256))
 # the launcher's default is 200 (repro/launch/quantize.py); the phase has
@@ -516,11 +555,13 @@ def _matmul_tol(torch, x, w, want, K):
 
 # K5's rows of x: "dense" (every row non-zero); as a decode step's dispatch
 # builds them from 4 tokens routed top-1 to 4, 2 or 1 experts ("routed4",
-# "routed2", "routed1"), the other experts' rows zero; "partial" (expert 1
-# zero over the first half of K only, expert 2 all zero, the rest dense);
-# "zero" (every row zero, half of the experts -0)
+# "routed2", "routed1"), or from deepseek-v3's 2 tokens routed top-8 to 16
+# distinct of its 256 experts ("top8x2"), the other experts' rows zero;
+# "partial" (expert 1 zero over the first half of K only, expert 2 all
+# zero, the rest dense); "zero" (every row zero, half of the experts -0)
 K5_ROUTED = {"routed4": (1, 6, 9, 14), "routed2": (3, 3, 12, 12),
-             "routed1": (5, 5, 5, 5)}
+             "routed1": (5, 5, 5, 5),
+             "top8x2": (tuple(range(3, 256, 32)), tuple(range(19, 256, 32)))}
 
 
 def _k5_x(torch, E, M, K, dtype, pattern, gen):
@@ -531,9 +572,10 @@ def _k5_x(torch, E, M, K, dtype, pattern, gen):
                              device=DEV).to(dtype)
         dispatch = torch.zeros((len(experts), E, M), device=DEV, dtype=dtype)
         filled = {}
-        for t, e in enumerate(experts):
-            dispatch[t, e, filled.get(e, 0)] = 1
-            filled[e] = filled.get(e, 0) + 1
+        for t, es in enumerate(experts):
+            for e in (es if isinstance(es, tuple) else (es,)):
+                dispatch[t, e, filled.get(e, 0)] = 1
+                filled[e] = filled.get(e, 0) + 1
         return torch.einsum("tec,tk->eck", dispatch, tokens).contiguous()
     x = torch.randn((E, M, K), generator=gen, device=DEV).to(dtype)
     if pattern == "partial":
@@ -768,6 +810,17 @@ def kernels_phase(torch):
                                               dtype == torch.bfloat16))
     for K, N in QWEN_2D:
         rows.append(check_int8(torch, k3, ref, 512, K, N, gen, timed=True))
+    # deepseek-v3's 2-D sites (MLA, the 18432-wide dense MLP, the shared
+    # expert): decode at batch 2, the 2 x 16 prefill and the export's 512
+    # tokens; K3 (the W8A8 layer 0) at the export
+    for M in (2, 32, 512):
+        for K, N in DEEPSEEK_2D:
+            for name in k12_names:
+                rows.append(check_dequant(
+                    torch, k12, ref, name, M, K, N, torch.bfloat16, gen,
+                    name == "dequant_matmul_w4" or M == 2))
+    for K, N in DEEPSEEK_2D:
+        rows.append(check_int8(torch, k3, ref, 512, K, N, gen, timed=True))
     torch.cuda.empty_cache()
     # K5 at the expert stacks: decode / prefill (C = 4) and export (C = 40)
     for M in (4, 40):
@@ -777,6 +830,15 @@ def kernels_phase(torch):
                     rows.append(check_batched(torch, k12, ref, LLAMA4_E, M, K,
                                               N, packed, dtype, gen,
                                               dtype == torch.bfloat16))
+            torch.cuda.empty_cache()
+    # deepseek-v3's 256 packed expert stacks: a decode step's x (2 tokens
+    # top-8: 16 experts hold a row) and the export's (4 groups x capacity 8
+    # rows of every expert)
+    for K, N in DEEPSEEK_EXPERTS:
+        for M, pattern in ((4, "top8x2"), (32, "dense")):
+            rows.append(check_batched(torch, k12, ref, DEEPSEEK_E, M, K, N,
+                                      True, torch.bfloat16, gen, True,
+                                      pattern))
             torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):  # ragged E, M, N and K
         rows.append(check_batched(torch, k12, ref, 3, 7, 578, 200, True,
@@ -1241,6 +1303,56 @@ def _first_curve_diff(np, a, b):
     return None
 
 
+def recon_graphs_equal(torch, np, blocks, recipe, x0, engines, where):
+    """``quantize_blocks`` over ``blocks`` twice from the same seed:
+    ``graphs=False``, then graphed. ``engines`` engines must be built on
+    each side and as many steps captured on the graphed one; loss and MSE
+    curves, errors, activation states and exported codes, scales and zeros
+    must be equal bit for bit (the first differing step is reported if
+    not). Returns ({"eager", "graph"}: seconds, steps/s, engine counters,
+    capture seconds), [(err_before, err_after)] per block)."""
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.obs import compile_events
+    runs, res = {}, {}
+    for graphs, tag in ((False, "eager"), (None, "graph")):
+        rc.reset_engine_stats()
+        n_caps = len(compile_events.capture_seconds("recon.step"))
+        t0 = time.perf_counter()
+        runs[tag] = rc.quantize_blocks(blocks, recipe, x0, graphs=graphs)
+        torch.cuda.synchronize()
+        st = rc.engine_stats()
+        reps = runs[tag][2]
+        caps = compile_events.capture_seconds("recon.step")[n_caps:]
+        res[tag] = {"seconds": time.perf_counter() - t0,
+                    "steps_per_s": [r.steps_per_s for r in reps],
+                    "engine_stats": dataclasses.asdict(st),
+                    "capture_s": caps}
+        log(f"recon graphs [{tag}]: {where} in {res[tag]['seconds']:.2f}s, "
+            "steps/s " + " ".join(f"{v:.1f}" for v in res[tag]["steps_per_s"])
+            + f"; step captures {len(caps)} "
+            f"({' '.join(f'{c:.3f}s' for c in caps)}), engines "
+            f"{st.engine_builds} built")
+        if st.engine_builds != engines or st.step_compiles != len(caps) or \
+                len(caps) != (engines if graphs is None else 0) or \
+                any(r.engine != tag for r in reps):
+            fail(f"recon graphs [{tag}]: {st}, captures {caps}, engines "
+                 f"{[r.engine for r in reps]}")
+    (fe, ae, re_), (fg, ag, rg) = runs["eager"], runs["graph"]
+    diff = (_same_tree(torch, fe, fg, "finalized")
+            + _same_tree(torch, ae, ag, "astates"))
+    errs = [(r.err_before, r.err_after) for r in re_]
+    if [(r.err_before, r.err_after) for r in rg] != errs:
+        diff.append("errors")
+    step = _first_curve_diff(np, re_, rg)
+    log(f"recon graphs: graphed against graphs=False, {where} x "
+        f"{recipe.iters} steps: {len(diff)} tensors differ, first curve "
+        f"difference {step}; errors {errs}")
+    if diff or step is not None:
+        fail(f"recon graphs: the replayed step differs from the eager one: "
+             f"{diff[:10]}, first curve difference (block, step) {step}")
+    return res, errs
+
+
 def recon_graph_phase(torch, np):
     """The captured Adam step against the same body run call by call, and
     a trace of it. With the launcher's weights, calibration set and recipe
@@ -1261,7 +1373,7 @@ def recon_graph_phase(torch, np):
     from repro_torch.data import CalibrationSet, SyntheticTokens
     from repro_torch.launch import quantize as launcher
     from repro_torch.models.model import build_model
-    from repro_torch.obs import compile_events, profiler
+    from repro_torch.obs import profiler
 
     args = launcher.build_parser().parse_args(launcher_argv(TRAIN_ITERS))
     recipe = launcher.build_recipe(args)
@@ -1271,43 +1383,8 @@ def recon_graph_phase(torch, np):
     calib = torch.as_tensor(CalibrationSet.build(SyntheticTokens(
         vocab=cfg.vocab, seq_len=args.seq, seed=0), args.calib).tokens).to(DEV)
     x0, blocks, _ = model.quant_blocks(params, calib)
-    runs, res = {}, {}
-    for graphs, tag in ((False, "eager"), (None, "graph")):
-        rc.reset_engine_stats()
-        n_caps = len(compile_events.capture_seconds("recon.step"))
-        t0 = time.perf_counter()
-        runs[tag] = rc.quantize_blocks(blocks[:2], recipe, x0, graphs=graphs)
-        torch.cuda.synchronize()
-        st = rc.engine_stats()
-        reps = runs[tag][2]
-        caps = compile_events.capture_seconds("recon.step")[n_caps:]
-        res[tag] = {"seconds": time.perf_counter() - t0,
-                    "steps_per_s": [r.steps_per_s for r in reps],
-                    "engine_stats": dataclasses.asdict(st),
-                    "capture_s": caps}
-        log(f"recon graphs [{tag}]: blocks 0-1 in {res[tag]['seconds']:.2f}s, "
-            "steps/s " + " ".join(f"{v:.1f}" for v in res[tag]["steps_per_s"])
-            + f"; step captures {len(caps)} "
-            f"({' '.join(f'{c:.3f}s' for c in caps)}), engines "
-            f"{st.engine_builds} built")
-        if st.engine_builds != 2 or st.step_compiles != len(caps) or \
-                len(caps) != (2 if graphs is None else 0) or \
-                any(r.engine != tag for r in reps):
-            fail(f"recon graphs [{tag}]: {st}, captures {caps}, engines "
-                 f"{[r.engine for r in reps]}")
-    (fe, ae, re_), (fg, ag, rg) = runs["eager"], runs["graph"]
-    diff = (_same_tree(torch, fe, fg, "finalized")
-            + _same_tree(torch, ae, ag, "astates"))
-    errs = [(r.err_before, r.err_after) for r in re_]
-    if [(r.err_before, r.err_after) for r in rg] != errs:
-        diff.append("errors")
-    step = _first_curve_diff(np, re_, rg)
-    log(f"recon graphs: graphed against graphs=False, blocks 0-1 x "
-        f"{recipe.iters} steps: {len(diff)} tensors differ, first curve "
-        f"difference {step}; errors {errs}")
-    if diff or step is not None:
-        fail(f"recon graphs: the replayed step differs from the eager one: "
-             f"{diff[:10]}, first curve difference (block, step) {step}")
+    res, errs = recon_graphs_equal(torch, np, blocks[:2], recipe, x0, 2,
+                                   "blocks 0-1")
 
     # 20 replayed steps of block 1's engine (the W4 body's), the teacher
     # stream as its input
@@ -1534,30 +1611,40 @@ def _same_tree(torch, a, b, where=""):
 
 
 def preemption_phase(torch, np):
+    """``preempt_and_resume`` on smollm-135m's launcher command at
+    PREEMPT_ITERS iterations, killed once block PREEMPT_AT is saved."""
+    res = preempt_and_resume(torch, launcher_argv(PREEMPT_ITERS), PREEMPT_AT,
+                             "preempt")
+    res.pop("result")
+    return dict(res, iters=PREEMPT_ITERS)
+
+
+def preempt_and_resume(torch, argv, kill_at, tag):
     """A launcher run killed mid-way resumes to the same export, bit for bit:
-    (1) ``launcher_argv(PREEMPT_ITERS)`` in process, without a break, to
-    export A; (2) the same command in a subprocess with ``--resume-dir D
-    --out B``, sent SIGKILL once D's checkpoint records ``next_block >=
-    PREEMPT_AT``; (3) the same command in process, resuming from D, to B.
-    Every tensor of B (codes, scales, zeros, the fp leaves, the activation
-    states) must equal A's bit for bit, and every block's err_before and
-    err_after too (the killed process's blocks come from its checkpoint)."""
+    (1) ``argv`` in process, without a break, to export A; (2) the same
+    command in a subprocess with ``--resume-dir D --out B``, sent SIGKILL
+    once D's checkpoint records ``next_block >= kill_at``; (3) the same
+    command in process, resuming from D, to B. Every tensor of B (codes,
+    scales, zeros, the fp leaves, the activation states) must equal A's bit
+    for bit, and every block's err_before and err_after too (the killed
+    process's blocks come from its checkpoint). Returns the seconds, the
+    block killed at, the blocks resumed, A's errors and its
+    ``LaunchResult`` (``"result"``)."""
     import os
     import signal
 
     from repro_torch.checkpoint import PTQCheckpointer, load_pytree
     from repro_torch.launch import quantize as launcher
 
-    argv = launcher_argv(PREEMPT_ITERS)
-    ckpt, out_a, out_b = (str(RUNS_DIR / n) for n in
-                          ("preempt_ckpt", "preempt_a", "preempt_b"))
+    ckpt, out_a, out_b = (str(RUNS_DIR / f"{tag}_{n}") for n in
+                          ("ckpt", "a", "b"))
     secs = {}
     t0 = time.perf_counter()
     res_a = launcher.main(argv + ["--out", out_a])
     torch.cuda.synchronize()
     secs["uninterrupted"] = time.perf_counter() - t0
 
-    log_path = RUNS_DIR / "preempt_child.log"
+    log_path = RUNS_DIR / f"{tag}_child.log"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.quantize"] + argv + [
         "--resume-dir", ckpt, "--out", out_b]
@@ -1572,7 +1659,7 @@ def preemption_phase(torch, np):
                     meta = PTQCheckpointer(ckpt).meta()
                 except (OSError, ValueError):  # caught mid-commit: poll again
                     meta = None
-                if meta is not None and meta["next_block"] >= PREEMPT_AT:
+                if meta is not None and meta["next_block"] >= kill_at:
                     child.send_signal(signal.SIGKILL)
                     killed_at = meta["next_block"]
                     break
@@ -1615,8 +1702,8 @@ def preemption_phase(torch, np):
         fail(f"preemption: the resumed export differs from the uninterrupted "
              f"one: tensors {diff[:10]}, blocks {bad}")
     return dict(seconds=secs, killed_at=killed_at, resumed_blocks=saved,
-                iters=PREEMPT_ITERS, err=errs_a,
-                err_after_sum=sum(b for _, b in errs_a))
+                err=errs_a, err_after_sum=sum(b for _, b in errs_a),
+                result=res_a)
 
 
 # -------------------------------------------------------------- auto-bits
@@ -2209,11 +2296,312 @@ def olmo_phase(torch, np):
         serve_launches=serve_counts, graphed=graphed, eager=eager, recheck=rc)
 
 
+# ----------------------------------------------------------- deepseek path
+def mla_greedy(torch, model, params, ctx, prompt, steps):
+    """Uniform-batch greedy decode through the absorbed MLA decode (the
+    path of the launcher's ``serve_smoke``): prefill ``prompt`` (B, S),
+    then ``steps`` decode steps. Returns (tokens (B, steps + 1) generated,
+    logits (steps + 1, B, V) in float32)."""
+    B, S = prompt.shape
+    cache = model.init_cache(B, S + steps + 1, device=DEV)
+    last, cache = model.prefill(params, prompt, cache, ctx)
+    logits = [model.logits(params, last)[:, -1].float()]
+    toks = [logits[0].argmax(-1)]
+    for i in range(steps):
+        lg, cache = model.decode_step(params, toks[-1][:, None], cache, S + i,
+                                      ctx)
+        logits.append(lg[:, -1].float())
+        toks.append(logits[-1].argmax(-1))
+    return torch.stack(toks, 1), torch.stack(logits)
+
+
+def mla_forced(torch, model, params, ctx, prompt, generated):
+    """Logits along a fixed token path: prefill of ``prompt``, then one
+    decode step per generated token but the last."""
+    B, S = prompt.shape
+    cache = model.init_cache(B, S + generated.shape[1], device=DEV)
+    last, cache = model.prefill(params, prompt, cache, ctx)
+    out = [model.logits(params, last)[:, -1].float()]
+    for i in range(generated.shape[1] - 1):
+        lg, cache = model.decode_step(params, generated[:, i:i + 1], cache,
+                                      S + i, ctx)
+        out.append(lg[:, -1].float())
+    return torch.stack(out)
+
+
+def deepseek_loss_check(torch, np):
+    """``model.loss`` with the mtp head on the reduced config in float32
+    (one dense and one MoE layer, d_model 64, vocab 128; B = 2, S = 200:
+    7 chunks of 32, the last padded) against ``plain_loss`` (unchunked
+    ``cross_entropy`` for both heads): the loss and ``mtp_ce`` within
+    relative 1e-5, the gradients of the embedding, the head, ``mtp.proj``
+    and two MLA weights within 1e-4 of the largest |gradient| each."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("deepseek-v3-671b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(2)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 200)),
+                                device=DEV) for k in ("tokens", "labels")}
+    watched = {"embed": params["embed"], "lm_head": params["lm_head"],
+               "mtp.proj": params["mtp"]["proj"],
+               "dense_layers.0.attn.wkv_b":
+                   params["dense_layers"][0]["attn"]["wkv_b"],
+               "layers.0.attn.wq_b": params["layers"][0]["attn"]["wq_b"]}
+    leaves = _leaves(torch, params)
+    for t in leaves:
+        t.requires_grad_(True)
+    ctx = QuantCtx(mode="fp")
+    runs = {}
+    for tag, fn in (("chunked", lambda: model.loss(params, batch, ctx)),
+                    ("plain", lambda: plain_loss(torch, model, params, batch,
+                                                 ctx))):
+        for t in leaves:
+            t.grad = None
+        loss, m = fn()
+        loss.backward()
+        runs[tag] = (loss.item(), m["mtp_ce"].item(),
+                     {k: v.grad.detach().clone() for k, v in watched.items()})
+    (lc, mc, gc_), (lp, mp, gp) = runs["chunked"], runs["plain"]
+    rel, mrel = abs(lc - lp) / abs(lp), abs(mc - mp) / abs(mp)
+    gdiff = {k: ((gc_[k] - gp[k]).abs().max() / gp[k].abs().max()).item()
+             for k in watched}
+    log(f"deepseek loss [reduced, float32, B=2, S=200]: chunked {lc:.6f} "
+        f"(mtp_ce {mc:.6f}), plain {lp:.6f} (mtp_ce {mp:.6f}), relative "
+        f"difference {rel:.3e} / {mrel:.3e} (tolerance 1e-5); largest "
+        "gradient difference over the largest gradient: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gdiff.items()) + " (tolerance 1e-4)")
+    if not (math.isfinite(lc) and rel <= 1e-5 and mrel <= 1e-5
+            and all(v <= 1e-4 for v in gdiff.values())):
+        fail("deepseek loss: the chunked loss, mtp_ce or the gradients "
+             "disagree with the plain cross entropy")
+    return {"loss": lc, "plain_loss": lp, "mtp_ce": mc, "plain_mtp_ce": mp,
+            "rel_diff": rel, "mtp_rel_diff": mrel, "grad_rel_diff": gdiff}
+
+
+def _leaves(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(torch, v)]
+
+
+def deepseek_launcher_check(torch):
+    """The reduced deepseek-v3 through the launcher on the card: W4A8
+    FlexRound with QDrop over both segments (dense block layers.0, MoE
+    block layers.1), DEEPSEEK_SMOKE_ITERS iterations, ``--serve-smoke
+    --serve`` (the engine's skip line), through ``preempt_and_resume``
+    with the kill after block 0's checkpoint; the error sum must fall, the
+    uniform-batch decode run and the engine refuse."""
+    argv = ["--arch", "deepseek-v3-671b", "--smoke", "--w-bits", "4",
+            "--a-bits", "8", "--setting", "qdrop", "--iters",
+            str(DEEPSEEK_SMOKE_ITERS), "--calib", "16", "--seq", "32",
+            "--serve-smoke", "--serve"]
+    res = preempt_and_resume(torch, argv, 1, "deepseek_smoke")
+    run = res.pop("result")
+    errs = res["err"]
+    before, after = sum(x for x, _ in errs), sum(y for _, y in errs)
+    log(f"deepseek launcher [smoke, {DEEPSEEK_SMOKE_ITERS} iterations, "
+        f"QDrop W4A8]: blocks {[r.name for r in run.reports]}, "
+        f"err_before/err_after " + " ".join(f"{x:.4e}/{y:.4e}"
+                                             for x, y in errs)
+        + f"; serve-smoke {run.serve_smoke_us:.1f} us/step; killed at block "
+        f"{res['killed_at']}, {res['resumed_blocks']} resumed")
+    if len(errs) != 2 or not after < before or run.serve is not None or \
+            not math.isfinite(run.serve_smoke_us):
+        fail(f"deepseek launcher: errors {before} -> {after}, serve "
+             f"{run.serve}, serve-smoke {run.serve_smoke_us}")
+    return dict(res, err_before_sum=before, err_after_sum=after,
+                serve_smoke_us=run.serve_smoke_us)
+
+
+def deepseek_phase(torch, np):
+    """deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA with q
+    rank 1536 and kv rank 512, d_ff 18432, 256 experts top-8 of width 2048
+    and a shared expert, vocab 129280) with DEEPSEEK_LAYERS = 4 of its 61
+    layers (the published 3 leading dense layers and 1 MoE layer) and no
+    mtp head, bfloat16, weights from torch.Generator seed 0. First block 0
+    (a dense MLA layer) is reconstructed for DEEPSEEK_RECON_ITERS FlexRound
+    iterations (W4A8, QDrop) through the captured engine and with
+    graphs=False: equal bit for bit, its error falling. Then the main
+    path: export-only PTQ (W4 body, W8 layer 0, A8, per-channel, mse
+    observer; RTN on the 256-expert stacks, which exports FlexRound's codes
+    at iters 0) on 8 x 64 tokens, and the launcher's ``serve_smoke`` (batch
+    2, 16 prompt tokens, 8 decode steps through the absorbed decode), the
+    counters zeroed just before and read just after: K1, K2 and K3 must
+    launch, K1 and K2 in both regimes, K5 packed in the mma (export) and
+    decode (serving) regimes. The prompt is decoded greedily with the
+    kernels and re-run along the same tokens with the plain versions
+    (logits relative L2, greedy tokens, routing flips). The slot engine
+    must refuse the model (``unsupported_layout:mla``) and the int8 cache
+    too (``kv_quant_unsupported:mla``). Then the mtp loss on the reduced
+    config and the reduced config through the launcher
+    (``deepseek_loss_check``, ``deepseek_launcher_check``).
+    max_memory_allocated of the full-width part must stay below 80 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.core.qtensor import tree_weight_bytes
+    from repro_torch.core.quant_config import QuantRecipe
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import kv as skv
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=DEEPSEEK_LAYERS, mtp=False)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    calib = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 64)), device=DEV)
+    torch.cuda.synchronize()
+    wbytes = tree_weight_bytes(params)
+    log(f"deepseek path: {cfg.name} ({len(params['dense_layers'])} dense + "
+        f"{len(params['layers'])} MoE of 61 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, MLA q/kv rank {cfg.q_lora_rank}/"
+        f"{cfg.kv_lora_rank}, d_ff {cfg.d_ff}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k} of width {cfg.moe_d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}) initialised in {time.perf_counter() - t0:.2f}s, "
+        f"weights {wbytes} B")
+
+    # the paper's learned rounding on MLA's five sites and the dense MLP
+    recon_recipe = QuantRecipe(method="flexround", w_bits=4, a_bits=8,
+                               w_granularity="per_channel", w_observer="mse",
+                               iters=DEEPSEEK_RECON_ITERS, batch_size=8)
+    x0, blocks, _ = model.quant_blocks(params, calib)
+    recon, recon_errs = recon_graphs_equal(torch, np, blocks[:1],
+                                           recon_recipe, x0, 1,
+                                           "deepseek block 0")
+    if not recon_errs[0][1] < recon_errs[0][0]:
+        fail(f"deepseek block 0: error {recon_errs[0][0]} -> "
+             f"{recon_errs[0][1]}")
+    recon_peak = torch.cuda.max_memory_allocated()
+    del x0, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recipe = QuantRecipe(method="flexround", w_bits=4, a_bits=8,
+                         w_granularity="per_channel", w_observer="mse",
+                         iters=0, rules=("layers.0.*:w_bits=8",
+                                         "layers.3.experts.*:method=rtn"))
+    ops.reset_launch_counts()  # the deepseek main path's run starts here
+    fin, astates, export_s, errs, _ = export(torch, model, params, calib,
+                                             recipe, [0])
+    export_counts = ops.launch_counts()
+    log(f"export launches {export_counts}")
+    n_dense = len(params["dense_layers"])
+    qparams = dict(params, dense_layers=fin[:n_dense], layers=fin[n_dense:])
+    del params, fin
+    gc.collect()
+    torch.cuda.empty_cache()
+    us = launcher.serve_smoke(model, qparams, astates, recipe, cfg,
+                              device=DEV)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()  # ... and ends here
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    log(f"serve-smoke launches {serve_counts}")
+    need = {"export: K1": export_counts["dequant_matmul_w4"],
+            "export: K3": export_counts["qmatmul_int8"],
+            "export: K5 packed mma":
+                min(export_counts["dequant_matmul_batched[packed]"],
+                    export_counts["dequant_matmul_batched[mma]"]),
+            "serve: K1": serve_counts["dequant_matmul_w4"],
+            "serve: K2": serve_counts["dequant_matmul_w8"],
+            "serve: K5 packed decode":
+                min(serve_counts["dequant_matmul_batched[packed]"],
+                    serve_counts["dequant_matmul_batched[decode]"])}
+    if not all(need.values()) or \
+            counts["dequant_matmul_batched[unpacked]"]:
+        fail(f"the deepseek path did not launch every kernel: {need}, "
+             f"{counts}")
+    require_regimes(counts, "the deepseek path")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the slot engine and the int8 cache refuse MLA with their reasons
+    refused = {}
+    for what, call in (
+            ("engine", lambda: ServeEngine(model, qparams, QuantCtx(
+                mode="deploy", recipe=recipe, astates=astates))),
+            ("kv_quant", lambda: model.init_cache(2, 8, kv_quant=True))):
+        try:
+            call()
+        except skv.KVQuantUnsupported as e:
+            refused[what] = e.reason
+    engine_run = launcher.serve_engine_run(model, qparams, astates, recipe,
+                                           cfg, device=DEV)
+    log(f"deepseek refusals: {refused}; serve_engine_run -> {engine_run}")
+    if refused != {"engine": "unsupported_layout:mla",
+                   "kv_quant": "kv_quant_unsupported:mla"} or \
+            engine_run is not None:
+        fail(f"deepseek: refusals {refused}, serve_engine_run {engine_run}")
+
+    # the prompt of serve_smoke decoded greedily with the kernels, then
+    # along the same tokens with the plain versions
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator(
+        ).manual_seed(0)).to(DEV)
+    res = {}
+    for backend in ("auto", "torch"):
+        ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates,
+                       backend=backend)
+        with torch.no_grad(), RouteLog() as rl:
+            if backend == "auto":
+                toks, lg = mla_greedy(torch, model, qparams, ctx, prompt, 8)
+            else:
+                lg = mla_forced(torch, model, qparams, ctx, prompt, toks)
+        res[backend] = (lg, rl.idx)
+    torch.cuda.synchronize()
+    (lk, rk), (lt, rt) = res["auto"], res["torch"]
+    rel = ((lk - lt).norm() / lt.norm()).item()
+    dev = (lk - lt).abs().max().item()
+    flips = sum(int((a != b).sum()) for a, b in zip(rk, rt))
+    decisions = sum(a.numel() for a in rk)
+    agree = int((lt.argmax(-1).T == toks).sum())
+    finite = bool(torch.isfinite(lk).all())
+    log(f"deepseek serve-smoke {us:.1f} us/step; greedy tokens "
+        f"{toks.tolist()}; torch backend re-run: logits relative L2 diff "
+        f"{rel:.4e}, max |diff| {dev:.4e}; routing decisions that differ "
+        f"{flips}/{decisions}; greedy tokens {agree}/{toks.numel()} identical")
+    # 4 layers rounded to bf16 in different places drift little; only a
+    # flipped top-k expert at a near-tie may move the logits by O(1)
+    if not finite or len(rk) != len(rt) or not math.isfinite(rel) or (
+            flips == 0 and rel > 5e-2) or lk.shape != (9, 2, cfg.vocab):
+        fail("deepseek: kernel and plain-version serving disagree beyond "
+             "bf16 tolerance without a routing flip")
+    log(f"deepseek: max_memory_allocated {peak} B (recon check {recon_peak} "
+        f"B), export {export_s:.2f}s")
+    if max(peak, recon_peak) >= 80e9:
+        fail(f"deepseek: peak device memory {peak} B")
+    del qparams, astates, res, lk, lt
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss = deepseek_loss_check(torch, np)
+    smoke = deepseek_launcher_check(torch)
+    return counts, {
+        "weights_bytes": wbytes,
+        "recon_block0": dict(recon, errors=recon_errs),
+        "export_s": export_s, "err": errs, "export_launches": export_counts,
+        "serve_launches": serve_counts, "serve_smoke_us": us,
+        "max_memory_allocated": peak, "recon_max_memory_allocated": recon_peak,
+        "refused": refused,
+        "recheck": {"rel_l2": rel, "max_abs_diff": dev,
+                    "routing_decisions": decisions, "routing_flips": flips,
+                    "greedy_agree": agree, "n_tokens": toks.numel()},
+        "loss": loss, "launcher_smoke": smoke}
+
+
 def plain_loss(torch, model, params, batch, ctx):
     """The loss without chunks: the same backbone, then the logits of every
     position at once in float32 and ``torch.nn.functional.cross_entropy``,
     with the prefix masked and the labels left-padded as ``model.loss``
-    does; plus 0.01 x the aux loss."""
+    does; plus 0.01 x the aux loss, and 0.3 x the mtp head's cross entropy
+    (computed the same way) when the config has one. Returns (total,
+    {"ce", "aux"[, "mtp_ce"]}) as ``model.loss`` does."""
     F = torch.nn.functional
     cfg = model.cfg
     pe = batch.get("patch_embeds")
@@ -2227,7 +2615,25 @@ def plain_loss(torch, model, params, batch, ctx):
     logits = (x.float() @ model.lm_head(params).float()) * cfg.logit_mult
     ce = F.cross_entropy(logits.reshape(-1, cfg.vocab), labels.reshape(-1),
                          reduction="none")
-    return (ce * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0) + 0.01 * aux
+    ce = (ce * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
+    total, m = ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        from repro_torch.models import common
+        from repro_torch.models.transformer import MTP_WEIGHT
+        head = params["mtp"]
+        emb = common.embed_tokens(params["embed"], batch["tokens"],
+                                  cfg.emb_mult)
+        z = ctx.linear("mtp.proj", torch.cat([x[:, :-1], emb[:, 1:]], -1),
+                       head["proj"])
+        z = common.rmsnorm(z, head["norm"]["scale"])
+        B, S, _ = z.shape
+        sin, cos = model._rope(torch.arange(S, device=DEV)[None].expand(B, S))
+        z = model.layer_apply(head["layer"], z, ctx, "mtp.layer", sin, cos)[0]
+        zl = (z.float() @ model.lm_head(params).float()) * cfg.logit_mult
+        m["mtp_ce"] = F.cross_entropy(zl.reshape(-1, cfg.vocab),
+                                      batch["labels"][:, 1:].reshape(-1))
+        total = total + MTP_WEIGHT * m["mtp_ce"]
+    return total, m
 
 
 def loss_phase(torch, np):
@@ -2273,7 +2679,7 @@ def loss_phase(torch, np):
         runs = {}
         for tag, fn in (("chunked", lambda: model.loss(params, batch, ctx)[0]),
                         ("plain", lambda: plain_loss(torch, model, params,
-                                                     batch, ctx))):
+                                                     batch, ctx)[0])):
             for t in leaves:
                 t.grad = None
             gc.collect()
@@ -2414,6 +2820,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    ds_counts, ds_path = deepseek_phase(torch, np)
+    log(f"deepseek-v3 path phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     loss = loss_phase(torch, np)
     log(f"loss phase: {time.perf_counter() - t0:.1f}s")
 
@@ -2427,6 +2839,7 @@ def main() -> int:
                    "olmo-1b-trained": olmo_counts[name],
                    "llama4-scout-17b-a16e": moe_counts[name],
                    "qwen2.5-14b": qwen_counts[name],
+                   "deepseek-v3-671b": ds_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
@@ -2455,7 +2868,7 @@ def main() -> int:
          "recon_graphs": recon_graphs, "trained_path": trained,
          "preemption": preemption, "auto_bits_path": auto_bits,
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
-         "loss": loss}, indent=1))
+         "deepseek_path": ds_path, "loss": loss}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

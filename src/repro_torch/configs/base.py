@@ -87,7 +87,8 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink a config to smoke-test size, preserving structure (the
-    reference's ``reduced``, its dense, moe and vlm branches)."""
+    reference's ``reduced``, its dense, moe (MLA included) and vlm
+    branches)."""
     changes = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -113,6 +114,9 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         changes.update(n_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=64,
                        first_dense=min(cfg.first_dense, 1),
                        capacity_factor=8.0)
+    if cfg.use_mla:
+        changes.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
+                       qk_rope_dim=8, v_head_dim=16, head_dim=24)
     if cfg.n_patches:
         changes.update(n_patches=8)
     return dataclasses.replace(cfg, **changes)

@@ -2,13 +2,14 @@
 
 The reference registers ten architectures; the port has the dense
 smollm-135m, granite-3-2b, qwen2.5-14b and olmo-1b, the MoE
-llama4-scout-17b-a16e and the vlm phi-3-vision-4.2b so far, in the
-reference's order. Asking for any other of the reference's names raises
+llama4-scout-17b-a16e and deepseek-v3-671b and the vlm phi-3-vision-4.2b so
+far, in the reference's order. Asking for any other of the reference's names raises
 ``KeyError`` saying it is not ported yet.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
+    deepseek_v3_671b,
     granite_3_2b,
     llama4_scout_17b_a16e,
     olmo_1b,
@@ -19,7 +20,7 @@ from repro_torch.configs import (
 from repro_torch.configs.base import ArchConfig, reduced
 
 _MODULES = (qwen2_5_14b, smollm_135m, granite_3_2b, olmo_1b,
-            llama4_scout_17b_a16e, phi3_vision_4_2b)
+            llama4_scout_17b_a16e, deepseek_v3_671b, phi3_vision_4_2b)
 
 _ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 ARCH_IDS = tuple(_ARCHS)

@@ -25,6 +25,9 @@ from repro_torch.core import quantizer as qz
 from repro_torch.core.quant_config import QuantConfig
 
 _EPS = 1e-8
+# elements of a stacked weight the mse observer takes at a time (1 GiB of
+# float32 per temporary)
+MSE_CHUNK_ELEMS = 2**28
 
 # jnp.linspace(0.2, 1.0, 80, dtype=float32), value for value (each literal is
 # the exact float32 value written in decimal, so float32(literal) is exact)
@@ -100,7 +103,24 @@ def mse_scale(w: torch.Tensor, qcfg: QuantConfig):
     ``lax.map`` does, so peak memory is a few copies of the weight and not
     80 (one (16, 5120, 8192) expert stack is 2.7 GB in float32). A
     candidate replaces the best so far only when its error is strictly
-    smaller: the first index wins at a tie, as ``jnp.argmin`` does."""
+    smaller: the first index wins at a tie, as ``jnp.argmin`` does.
+
+    A stacked weight (``batch_dims`` >= 1) larger than ``MSE_CHUNK_ELEMS``
+    elements is walked in chunks along its first axis, each chunk through
+    all 80 candidates: the axis is kept by every reduction, so each
+    sub-tensor's scale and zero depend on its own elements only, and a
+    float32 copy of one deepseek-v3 expert stack (256 x 7168 x 2048, 15 GB)
+    is never made."""
+    n = w.shape[0] if qcfg.batch_dims else 1
+    step = max(1, MSE_CHUNK_ELEMS // max(1, w[0].numel())) if n > 1 else n
+    if step >= n:
+        return _mse_scale(w, qcfg)
+    parts = [_mse_scale(w[i:i + step], qcfg) for i in range(0, n, step)]
+    return (torch.cat([s for s, _ in parts]),
+            torch.cat([z for _, z in parts]))
+
+
+def _mse_scale(w: torch.Tensor, qcfg: QuantConfig):
     w32 = w.float()
     wmin, wmax = _range_stats(w32, qcfg)
     axes = qz.reduce_axes(tuple(w.shape), qcfg)
@@ -109,7 +129,9 @@ def mse_scale(w: torch.Tensor, qcfg: QuantConfig):
     for p in ps:
         s, z = _scale_zero_from_range(wmin * p, wmax * p, qcfg, compiled=True)
         what = qz.fake_quant(w32, s, z, qcfg, ste=False)
-        err = torch.sum((w32 - what) ** 2, dim=axes, keepdim=True)
+        with torch.no_grad():  # (what - w)^2 in place: no third copy
+            err = torch.sum(what.detach().sub_(w32).square_(), dim=axes,
+                            keepdim=True)
         del what
         if best_err is None:
             best_err, scale, zero = err, s, z

@@ -66,14 +66,23 @@ def _unpack_nibbles(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return out.reshape(shape)
 
 
+# elements of the float codes ``from_codes`` rounds at a time
+_SLAB_ELEMS = 2**28
+
+
 def from_codes(q_float: torch.Tensor, scale, zero, qcfg: QuantConfig,
                dtype=torch.bfloat16) -> QTensor:
     """Build a QTensor from float codes in [qmin, qmax] (observer output).
     <=4-bit codes nibble-pack along the first non-batch axis when it is
     even; odd K stays one code per byte."""
-    q = torch.round(q_float)
     offset = 0 if not qcfg.symmetric else -qcfg.qmin
-    qu = (q + offset).to(torch.uint8)
+    # rounded a slab of the first axis at a time: a float32 copy of a whole
+    # 256-expert stack (15 GB) is never made
+    qu = torch.empty(q_float.shape, dtype=torch.uint8, device=q_float.device)
+    step = max(1, _SLAB_ELEMS // max(1, q_float[0].numel()))
+    with torch.no_grad():
+        for i in range(0, q_float.shape[0], step):
+            qu[i:i + step] = torch.round(q_float[i:i + step]).add_(offset)
     pack_axis = min(qcfg.batch_dims, q_float.dim() - 1)
     packed = qcfg.bits <= 4 and q_float.shape[pack_axis] % 2 == 0
     codes = _pack_nibbles(qu, axis=pack_axis) if packed else qu

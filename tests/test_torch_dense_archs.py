@@ -417,10 +417,44 @@ def test_olmo_launcher_two_step_reports_match(olmo_launches):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(use_mla=True), "item 9.2"), (dict(first_dense=1), "item 9.2"),
-    (dict(mtp=True), "item 9.2"), (dict(family="ssm"), "item 9"),
-    (dict(family="encdec"), "item 9"), (dict(family="hybrid"), "item 9")])
+    (dict(family="ssm"), "item 9"), (dict(family="encdec"), "item 9"),
+    (dict(family="hybrid"), "item 9")])
 def test_unported_pieces_raise_naming_their_roadmap_item(change, item):
     cfg = dataclasses.replace(get_smoke_config("smollm-135m"), **change)
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg)
+
+
+MLA_DIMS = dict(use_mla=True, q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
+                qk_rope_dim=8, v_head_dim=16, head_dim=24)
+
+
+@pytest.mark.parametrize("change", [MLA_DIMS, dict(first_dense=1),
+                                    dict(mtp=True)],
+                         ids=["use_mla", "first_dense", "mtp"])
+def test_deepseek_pieces_on_a_dense_config_match_the_reference(change):
+    """deepseek's three pieces, each alone on smollm's smoke config (they
+    raised before deepseek-v3 was ported): MLA attention, ``first_dense``
+    (ignored by a dense model, as in the reference) and the mtp head. The
+    loss and its metrics (``mtp_ce`` with the head) equal the reference's
+    on the same weights, relative 1e-5."""
+    jcfg = dataclasses.replace(jget_smoke_config("smollm-135m"), **change)
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), **change)
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    jparams = jmodel.init(jax.random.key(0))
+    params = bridge.params(jparams, CPU)
+    assert _keys(model.init(torch.Generator().manual_seed(0), device=CPU)
+                 ) == _keys(params)
+    assert "dense_layers" not in params
+    batch = {"tokens": _tokens(cfg, (2, 20), seed=1),
+             "labels": _tokens(cfg, (2, 20), seed=2)}
+    jl, jm = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+                         JQuantCtx(mode="fp"))
+    loss, m = model.loss(params, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()},
+                         QuantCtx(mode="fp"))
+    assert sorted(m) == sorted(jm)
+    assert ("mtp_ce" in m) == bool(change.get("mtp"))
+    for k in m:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)

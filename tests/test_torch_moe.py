@@ -384,10 +384,28 @@ def test_bridge_unstacks_uniform_expert_qtensors(lm):
     np.testing.assert_allclose(_np(x), np.asarray(jx), **F32)
 
 
-def test_deepseek_layouts_not_ported():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), use_mla=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
-    cfg = dataclasses.replace(get_smoke_config(ARCH), first_dense=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+def test_deepseek_layouts_on_the_moe_config_match_the_reference():
+    """deepseek's layouts on llama4-scout's smoke config (they raised
+    before deepseek-v3 was ported): one leading dense layer in front of the
+    MoE layer (``dense_layers`` and ``layers``), and MLA attention. The
+    hidden states equal the reference's on the same weights (float32,
+    rtol = atol = 1e-5)."""
+    mla_dims = dict(use_mla=True, q_lora_rank=32, kv_lora_rank=32,
+                    qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, head_dim=24)
+    for change in (dict(first_dense=1), mla_dims):
+        jcfg = dataclasses.replace(jget_smoke_config(ARCH), **change)
+        cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
+        jmodel, model = jbuild_model(jcfg), build_model(cfg)
+        jparams = jmodel.init(jax.random.key(0))
+        params = bridge.params(jparams, CPU)
+        segs = [k for k in ("dense_layers", "layers") if k in params]
+        assert segs == (["dense_layers", "layers"] if "first_dense" in change
+                        else ["layers"])
+        assert [len(params[k]) for k in segs] == (
+            [1, 1] if "first_dense" in change else [2])
+        toks = _tokens(cfg, (2, 9), seed=6)
+        jx, _, _ = jmodel.backbone(jparams, jnp.asarray(toks),
+                                   JQuantCtx(mode="fp"))
+        x, _, _ = model.backbone(params, torch.from_numpy(toks),
+                                 QuantCtx(mode="fp"))
+        np.testing.assert_allclose(_np(x), np.asarray(jx), **F32)
