@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Needs one card of 80 GB (the deepseek-v3 path peaks below 75 GB). Phases, each fatal on failure (the exit code is non-zero and the
-last line is not printed):
+Needs one card of 80 GB (the deepseek-v3 path peaks below 75 GB). Phases,
+each fatal on failure (the exit code is non-zero and the last line is not
+printed):
 
 1. Device   — require CUDA; print the card's name and power limit.
 2. Build    — compile every CUDA source under src/repro_torch/csrc with
@@ -202,7 +203,51 @@ last line is not printed):
               K1/K2 at deepseek's 2-D sites (M 2, 32, 512), K3 at M 512 and
               K5 at E = 256 (2 tokens top-8: 16 active experts, M 4; and
               the export's M 32).
-8. Loss     — ``model.loss`` (the chunked cross entropy, each chunk
+8. Whisper  — whisper-medium at full width and depth (24 encoder and 24
+              decoder layers, d_model 1024, 16 heads, d_ff 4096, vocab
+              51865; LayerNorm, GELU, biased projections), bf16, weights
+              from torch.Generator seed 0, the audio stub's frame
+              embeddings N(0, 1) from seed 1 (16 x 1504 x 1024) and 16 x 64
+              calibration tokens: FlexRound (W4 body, W8 layers 0 and 23,
+              A8, QDrop, minibatches of 16 = the calibration set, the limit
+              the encoder output baked into every decoder block sets).
+              Block 0's 20 iterations graphed against graphs=False, bit for
+              bit; then, counters zeroed before and read after, all 24
+              decoder blocks at 100 iterations through the captured engine
+              (the error sum must fall; the export must launch K1 in the
+              mma regime and K3) and uniform-batch serving (batch 4, 16
+              prompt tokens, 16 greedy steps over 1504 frames) with the
+              int8 self and cross caches and with bf16 ones (µs per step,
+              cache bytes: int8 must be smaller); K1 and K2 in both
+              regimes; every (M, K, N) the window gave K1, K2 or K3 is
+              held against its plain version (``check_path_shapes``).
+              Request 0 re-run along its path with the plain versions; the
+              slot engine must refuse the family
+              (``unsupported_family:encdec``); 8 int8-cache decode steps
+              traced (device-busy share).
+9. Mamba2   — mamba2-130m at full width and depth (24 layers, d_model 768,
+              SSM state 128, in_proj (768, 3352)) through the launcher
+              (the trained phase's command with W8 layers 0 and 23,
+              ``--serve-smoke --serve``) under ``preempt_and_resume``
+              (killed after block 10, resumed bit for bit), counters zeroed
+              before and read after the uninterrupted run: K1 and K2 in
+              both regimes and K3, every shape held against the plain
+              versions as for whisper; the error sum must fall and
+              ``--serve`` print its skip line (``unsupported_family:ssm``).
+              On the export: 256 prefilled tokens (one SSD chunk) and 16
+              decode steps against the chunked forward over 512, with the
+              kernels and with the plain versions (logits within
+              MAMBA_SCAN_TOL relative L2, greedy tokens equal but at
+              near-ties), and each of the two with the kernels against the
+              plain versions (5e-2); serve-smoke's prompt re-run plain; the
+              int8 cache refused (``kv_quant_unsupported:ssm``); 8 decode
+              steps traced. The kernels phase adds K1 and K2 at whisper's
+              decoder sites (M 4 and the export's 1024; (1024, 4096) also
+              at M 64) and K3 at M 1024; K1 and K2 at in_proj (M 2 and 64:
+              N % 16 = 8, scalar code loads), K3 there at M 512; K1 and K3
+              at both mamba2 sites at the export's 4096 rows, K1 and K2 at
+              out_proj (M 2).
+10. Loss    — ``model.loss`` (the chunked cross entropy, each chunk
               recomputed in the backward) against an unchunked float32
               ``cross_entropy`` over the same hidden states, in float32 at
               full width: olmo-1b with 2 layers, B = 2, S = 1000 (two chunks
@@ -269,6 +314,31 @@ DEEPSEEK_E = 256
 # above the start (0.067 -> 0.132), 100 end at a third of it (0.021)
 DEEPSEEK_RECON_ITERS = 100
 DEEPSEEK_SMOKE_ITERS = 100  # the reduced config through the launcher
+# whisper-medium's decoder sites: the eight (1024, 1024) projections of
+# self- and cross-attention, w_up and w_down
+WHISPER_2D = ((1024, 1024), (1024, 4096), (4096, 1024))
+WHISPER_CALIB = 16  # calibration samples = the minibatch: the encoder output
+                    # baked into every decoder block holds all of them
+WHISPER_EXPORT_M = WHISPER_CALIB * 64  # rows of the export's decoder sites
+WHISPER_BLOCK0_ITERS = 20  # block 0, graphed against graphs=False
+WHISPER_ITERS = 100        # all 24 decoder blocks
+WHISPER_SERVE = (4, 16, 16)  # batch, prompt tokens, greedy steps
+# mamba2-130m: in_proj (768, 3352), whose N % 16 = 8 sends K1/K2/K3 down
+# their scalar code loads with a last N tile of 24 columns; out_proj
+# (1536, 768)
+MAMBA_IN = (768, 3352)
+MAMBA_OUT = (1536, 768)
+MAMBA_LAST = 23     # mamba2's last layer, W8 in its launcher run
+MAMBA_EXPORT_M = 64 * 64  # the launcher's calibration set, 64 x 64 tokens
+MAMBA_PREEMPT_AT = 10
+MAMBA_PREFILL = 256  # one SSD chunk
+MAMBA_DECODE = 16
+# scan against decode in bf16 on the export, with the kernels and with the
+# plain versions: the limit both readings are held to. On an H100 they read
+# 4.43e-2 and 4.41e-2 (the model's bf16 rounding: the chunked path rounds
+# the conv's products to bf16, the recurrence sums them in float32), and
+# in float32 2.2e-5; a wrong scan, decode or kernel is off by O(1)
+MAMBA_SCAN_TOL = 8e-2
 # the loss phase: (arch, layers, batch, text tokens, patch embeddings)
 LOSS_RUNS = (("olmo-1b", 2, 2, 1000, 0), ("phi-3-vision-4.2b", 2, 2, 256, 256))
 # the launcher's default is 200 (repro/launch/quantize.py); the phase has
@@ -432,7 +502,7 @@ def check_dequant(torch, kern, ref, name, M, K, N, dtype, gen, timed,
     row = {"kernel": name, "M": M, "K": K, "N": N,
            "x": str(dtype).replace("torch.", ""), "regime": p.regime,
            "tile": p.kernel, "splits": p.splits, "misaligned": misalign,
-           "max_abs_err": err.max().item()}
+           "vec_codes": p.vec_codes, "max_abs_err": err.max().item()}
     if timed:
         wbytes = codes.numel() + 8 * N
         ybytes = K * N * x.element_size()  # the dequantized yardstick
@@ -507,7 +577,7 @@ def check_int8(torch, kern, ref, M, K, N, gen, timed, codes="random",
              "rounding bound")
     row = {"kernel": "qmatmul_int8", "M": M, "K": K, "N": N, "x": "int8",
            "codes": codes, "misaligned": misalign, "splits": p.splits,
-           "max_abs_err": err.max().item()}
+           "vec_b": p.vec_b, "max_abs_err": err.max().item()}
     if timed:
         wbytes = b_q.numel() + 8 * N
         sets = [(a_q, b_q.clone(), a_scale, a_zero, b_scale, b_zero)
@@ -821,6 +891,40 @@ def kernels_phase(torch):
                     name == "dequant_matmul_w4" or M == 2))
     for K, N in DEEPSEEK_2D:
         rows.append(check_int8(torch, k3, ref, 512, K, N, gen, timed=True))
+    # whisper-medium's decoder sites: K1 and K2 at the serving batch of 4,
+    # K1 at the prefill's 4 x 16 rows, K1 (mma) and K3 at the export's
+    # 16 x 64 (the path's other shapes: check_path_shapes)
+    for K, N in WHISPER_2D:
+        for name in k12_names:
+            for M in (4, WHISPER_EXPORT_M):
+                rows.append(check_dequant(torch, k12, ref, name, M, K, N,
+                                          torch.bfloat16, gen, True))
+        rows.append(check_int8(torch, k3, ref, WHISPER_EXPORT_M, K, N, gen,
+                               timed=True))
+    rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4", 64, 1024,
+                              4096, torch.bfloat16, gen, True))
+    # mamba2-130m: in_proj's misaligned N (scalar code loads, a last tile of
+    # 24 columns) at serve-smoke's batch 2 and at 64 rows, K3 at 512 rows;
+    # both sites at the export's 64 x 64 rows (K1 mma and K3) and at decode
+    # (K1 and K2)
+    n_rows = len(rows)
+    for M in (2, 64):
+        for name in k12_names:
+            rows.append(check_dequant(torch, k12, ref, name, M, *MAMBA_IN,
+                                      torch.bfloat16, gen, True))
+    rows.append(check_int8(torch, k3, ref, 512, *MAMBA_IN, gen, timed=True))
+    for K, N in (MAMBA_IN, MAMBA_OUT):
+        rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4",
+                                  MAMBA_EXPORT_M, K, N, torch.bfloat16, gen,
+                                  True))
+        rows.append(check_int8(torch, k3, ref, MAMBA_EXPORT_M, K, N, gen,
+                               timed=True))
+    for name in k12_names:
+        rows.append(check_dequant(torch, k12, ref, name, 2, *MAMBA_OUT,
+                                  torch.bfloat16, gen, True))
+    if any(r.get("vec_codes") or r.get("vec_b") for r in rows[n_rows:]
+           if r["N"] == MAMBA_IN[1]):
+        fail(f"mamba2 in_proj (N = {MAMBA_IN[1]}) planned 16-byte loads")
     torch.cuda.empty_cache()
     # K5 at the expert stacks: decode / prefill (C = 4) and export (C = 40)
     for M in (4, 40):
@@ -1086,7 +1190,8 @@ def device_window(trace_dir, mark):
     to the last one's end. ``device_busy_share`` is the union of kernel,
     memcpy and memset intervals over the window's wall time (None when the
     trace holds no device activity); ``top5`` the device ops with the most
-    time in it."""
+    time in it; ``host_syncs`` the runtime's synchronize calls and
+    ``copies_to_device`` the host-to-device copies that start in it."""
     files = sorted(trace_dir.glob("*.json"))
     events = json.loads(files[-1].read_text())["traceEvents"]
     shutil.rmtree(trace_dir, ignore_errors=True)
@@ -1094,10 +1199,16 @@ def device_window(trace_dir, mark):
              and e.get("name") == mark]
     lo = min(e["ts"] for e in marks)
     hi = max(e["ts"] + e["dur"] for e in marks)
-    spans, by_name = [], {}
+    spans, by_name, syncs, h2d = [], {}, 0, 0
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in (
-                "kernel", "gpu_memcpy", "gpu_memset"):
+        if e.get("ph") != "X":
+            continue
+        if lo <= e["ts"] < hi:
+            if e.get("cat") == "cuda_runtime" and "Synchronize" in e["name"]:
+                syncs += 1
+            elif e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]:
+                h2d += 1
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
         a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
         if b > a:
@@ -1113,7 +1224,8 @@ def device_window(trace_dir, mark):
     return {"marks": len(marks), "window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / window_us if spans else None,
-            "device_ops": len(spans),
+            "device_ops": len(spans), "host_syncs": syncs,
+            "copies_to_device": h2d,
             "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
 
 
@@ -1173,6 +1285,70 @@ def require_regimes(counts, where):
         fail(f"{where} did not launch {missing}: {counts}")
 
 
+class PathWindow:
+    """A main path's counter window that also keeps the shape of every
+    call the deploy dispatch makes to K1, K2 and K3: ``start`` zeroes the
+    counters and wraps ``ops``' names of the three wrappers with a
+    recorder; ``stop`` reads the counters and puts the wrappers back.
+    ``shapes`` holds (kernel, M, K, N, x dtype) of every call."""
+
+    NAMES = ("dequant_matmul_w4", "dequant_matmul_w8", "qmatmul_int8")
+
+    def __init__(self, torch):
+        self.torch, self.shapes, self.counts, self._real = torch, set(), None, {}
+
+    def start(self):
+        from repro_torch.kernels import ops
+        for name in self.NAMES:
+            real = self._real[name] = getattr(ops, name)
+
+            def record(x, b, *args, _name=name, _real=real, **kwargs):
+                self.shapes.add((_name, x.shape[0], x.shape[1], b.shape[1],
+                                 str(x.dtype).replace("torch.", "")))
+                return _real(x, b, *args, **kwargs)
+
+            setattr(ops, name, record)
+        ops.reset_launch_counts()
+
+    def stop(self):
+        from repro_torch.kernels import ops
+        self.torch.cuda.synchronize()
+        self.counts = ops.launch_counts()
+        for name, real in self._real.items():
+            setattr(ops, name, real)
+        return self.counts
+
+
+def check_path_shapes(torch, window, rows, where):
+    """Every shape a path's window gave K1, K2 or K3 (``PathWindow``) that
+    no row of ``rows`` already held: the wrapper against its plain version
+    at that shape. Returns the new rows, each naming ``where``."""
+    from repro_torch.kernels import dequant_matmul_w4 as k12
+    from repro_torch.kernels import qmatmul_int8 as k3
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    held = {(r["kernel"], r["M"], r["K"], r["N"], r["x"]) for r in rows
+            if r["kernel"] in PathWindow.NAMES and not r.get("misaligned")
+            and r.get("codes", "random") == "random"}
+    new = []
+    for shape in sorted(window.shapes - held):
+        name, M, K, N, x = shape
+        if name == "qmatmul_int8":
+            new.append(check_int8(torch, k3, ref, M, K, N, gen, timed=False))
+        else:
+            new.append(check_dequant(torch, k12, ref, name, M, K, N,
+                                     getattr(torch, x), gen, False))
+        new[-1]["path"] = where
+    torch.cuda.empty_cache()
+    log(f"{where}: {len(window.shapes)} kernel shapes on the path, "
+        f"{len(window.shapes) - len(new)} held by the kernels phase, "
+        f"{len(new)} more held against their plain versions: "
+        + ", ".join(f"{r['kernel']} {r['M']}x{r['K']}x{r['N']} "
+                    f"{r.get('regime', 'int8')} {r['max_abs_err']:.3e}"
+                    for r in new))
+    return new
+
+
 def _qtensors(tree):
     from repro_torch.core.qtensor import QTensor
     if isinstance(tree, QTensor):
@@ -1201,17 +1377,9 @@ def recheck_request0(torch, model, qparams, recipe, astates, requests, outs,
             lg = forced_logits(torch, model, qparams, ctx, prompt, generated, 32)
         res[backend] = (lg, rl.idx)
     torch.cuda.synchronize()
-    lk, lt = res["auto"][0], res["torch"][0]
-    rel = ((lk - lt).norm() / lt.norm()).item()
-    dev = (lk - lt).abs().max().item()
-    # a greedy token may differ only where the plain path's top two logits
-    # lie within twice the largest deviation of each other
-    near = lt.gather(1, torch.as_tensor(generated, device=DEV)[:, None])[:, 0]
-    ties_ok = bool((near >= lt.max(dim=1).values - 2 * dev).all())
-    agree = int((lt.argmax(dim=1).cpu() == torch.as_tensor(generated)).sum())
-    return {"rel_l2": rel, "max_abs_diff": dev, "ties_ok": ties_ok,
-            "greedy_agree": agree, "n_tokens": len(generated),
-            "routes": (res["auto"][1], res["torch"][1])}
+    return dict(_tie_agreement(torch, res["auto"][0], res["torch"][0],
+                               torch.as_tensor(generated, device=DEV)),
+                routes=(res["auto"][1], res["torch"][1]))
 
 
 def path_phase(torch, np, arch="smollm-135m", n_layers=None, w8_layers=(0, 29),
@@ -1619,7 +1787,7 @@ def preemption_phase(torch, np):
     return dict(res, iters=PREEMPT_ITERS)
 
 
-def preempt_and_resume(torch, argv, kill_at, tag):
+def preempt_and_resume(torch, argv, kill_at, tag, window=None):
     """A launcher run killed mid-way resumes to the same export, bit for bit:
     (1) ``argv`` in process, without a break, to export A; (2) the same
     command in a subprocess with ``--resume-dir D --out B``, sent SIGKILL
@@ -1629,7 +1797,8 @@ def preempt_and_resume(torch, argv, kill_at, tag):
     for bit, and every block's err_before and err_after too (the killed
     process's blocks come from its checkpoint). Returns the seconds, the
     block killed at, the blocks resumed, A's errors and its
-    ``LaunchResult`` (``"result"``)."""
+    ``LaunchResult`` (``"result"``). A ``PathWindow`` is started just
+    before run (1) and stopped just after it: run (1) is the main path."""
     import os
     import signal
 
@@ -1640,7 +1809,11 @@ def preempt_and_resume(torch, argv, kill_at, tag):
                           ("ckpt", "a", "b"))
     secs = {}
     t0 = time.perf_counter()
+    if window is not None:
+        window.start()
     res_a = launcher.main(argv + ["--out", out_a])
+    if window is not None:
+        window.stop()
     torch.cuda.synchronize()
     secs["uninterrupted"] = time.perf_counter() - t0
 
@@ -2297,36 +2470,114 @@ def olmo_phase(torch, np):
 
 
 # ----------------------------------------------------------- deepseek path
-def mla_greedy(torch, model, params, ctx, prompt, steps):
-    """Uniform-batch greedy decode through the absorbed MLA decode (the
-    path of the launcher's ``serve_smoke``): prefill ``prompt`` (B, S),
-    then ``steps`` decode steps. Returns (tokens (B, steps + 1) generated,
-    logits (steps + 1, B, V) in float32)."""
+def _uniform_prefill(model, params, ctx, prompt, max_len, frames, kv_quant):
+    """A fresh cache (int8 with ``kv_quant``) filled by ``prefill``; an
+    encoder-decoder also takes its ``frames`` (B, enc_len, D)."""
+    B = prompt.shape[0]
+    if frames is None:
+        cache = model.init_cache(B, max_len, kv_quant=kv_quant, device=DEV)
+        return model.prefill(params, prompt, cache, ctx)
+    cache = model.init_cache(B, max_len, frames.shape[1], kv_quant=kv_quant,
+                             device=DEV)
+    return model.prefill(params, prompt, frames, cache, ctx)
+
+
+def uniform_greedy(torch, model, params, ctx, prompt, steps, frames=None,
+                   kv_quant=False):
+    """Uniform-batch greedy decode (the path of the launcher's
+    ``serve_smoke``): prefill ``prompt`` (B, S), then ``steps`` decode
+    steps. Returns (tokens (B, steps + 1) generated, logits (steps + 1, B,
+    V) in float32, {"us_per_step": decode steps timed between host syncs,
+    "cache_bytes"})."""
+    from repro_torch.serve import kv as skv
     B, S = prompt.shape
-    cache = model.init_cache(B, S + steps + 1, device=DEV)
-    last, cache = model.prefill(params, prompt, cache, ctx)
+    last, cache = _uniform_prefill(model, params, ctx, prompt, S + steps + 1,
+                                   frames, kv_quant)
     logits = [model.logits(params, last)[:, -1].float()]
     toks = [logits[0].argmax(-1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for i in range(steps):
         lg, cache = model.decode_step(params, toks[-1][:, None], cache, S + i,
                                       ctx)
         logits.append(lg[:, -1].float())
         toks.append(logits[-1].argmax(-1))
-    return torch.stack(toks, 1), torch.stack(logits)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6 / max(steps, 1)
+    return (torch.stack(toks, 1), torch.stack(logits),
+            {"us_per_step": us, "cache_bytes": skv.cache_bytes(cache)})
 
 
-def mla_forced(torch, model, params, ctx, prompt, generated):
+def uniform_forced(torch, model, params, ctx, prompt, generated, frames=None,
+                   kv_quant=False):
     """Logits along a fixed token path: prefill of ``prompt``, then one
     decode step per generated token but the last."""
     B, S = prompt.shape
-    cache = model.init_cache(B, S + generated.shape[1], device=DEV)
-    last, cache = model.prefill(params, prompt, cache, ctx)
+    last, cache = _uniform_prefill(model, params, ctx, prompt,
+                                   S + generated.shape[1], frames, kv_quant)
     out = [model.logits(params, last)[:, -1].float()]
     for i in range(generated.shape[1] - 1):
         lg, cache = model.decode_step(params, generated[:, i:i + 1], cache,
                                       S + i, ctx)
         out.append(lg[:, -1].float())
     return torch.stack(out)
+
+
+def profile_uniform(torch, model, params, ctx, prompt, tag, frames=None,
+                    kv_quant=False, steps=8):
+    """``steps`` uniform-batch decode steps after ``prompt``'s prefill and
+    two untraced steps, each annotated ``uniform.decode_step`` and traced
+    with obs.profiler: the device-busy share of their window, the device
+    ops in it and the top 5 (``device_window``), and the host's ms per
+    traced step."""
+    from repro_torch.obs import profiler
+    B, S = prompt.shape
+    d = RUNS_DIR / f"profile_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    with torch.no_grad():
+        last, cache = _uniform_prefill(model, params, ctx, prompt,
+                                       S + steps + 2, frames, kv_quant)
+        tok = model.logits(params, last)[:, -1].argmax(-1)[:, None]
+        for i in range(2):
+            _, cache = model.decode_step(params, tok, cache, S + i, ctx)
+        torch.cuda.synchronize()
+        with profiler.trace(str(d)):
+            t0 = time.perf_counter()
+            for i in range(steps):
+                with profiler.annotate("uniform.decode_step", i):
+                    _, cache = model.decode_step(params, tok, cache,
+                                                 S + 2 + i, ctx)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    win = device_window(d, "uniform.decode_step")
+    res = {"steps": win.pop("marks"), "wall_ms_per_step": 1e3 * wall_s / steps,
+           **win}
+    share = res["device_busy_share"]
+    log(f"profile [{tag}]: {res['steps']} uniform decode steps, window "
+        f"{res['window_ms']:.3f} ms, device busy {res['device_busy_ms']:.3f} "
+        f"ms ({'not measured' if share is None else f'{100 * share:.1f}%'}), "
+        f"{res['device_ops']} device ops, {res['host_syncs']} host syncs, "
+        f"{res['copies_to_device']} copies to the device, "
+        f"{res['wall_ms_per_step']:.3f} ms per traced step; top 5: "
+        + "; ".join(
+            f"{t['name'][:60]} {t['ms']:.3f} ms" for t in res["top5"]))
+    return res
+
+
+def _tie_agreement(torch, lk, lt, generated):
+    """Kernel logits ``lk`` against plain ones ``lt`` (..., V) along the
+    greedy path ``generated`` (...,): relative L2, max |diff|, greedy
+    tokens of the plain run equal to the path, and whether every other one
+    is a near-tie: a greedy token may differ only where the plain run's
+    logit of the path's token lies within twice the largest deviation of
+    its top logit."""
+    rel = ((lk - lt).norm() / lt.norm()).item()
+    dev = (lk - lt).abs().max().item()
+    near = lt.gather(-1, generated[..., None])[..., 0]
+    ties_ok = bool((near >= lt.max(dim=-1).values - 2 * dev).all())
+    agree = int((lt.argmax(dim=-1) == generated).sum())
+    return {"rel_l2": rel, "max_abs_diff": dev, "ties_ok": ties_ok,
+            "greedy_agree": agree, "n_tokens": int(generated.numel())}
 
 
 def deepseek_loss_check(torch, np):
@@ -2551,17 +2802,17 @@ def deepseek_phase(torch, np):
                        backend=backend)
         with torch.no_grad(), RouteLog() as rl:
             if backend == "auto":
-                toks, lg = mla_greedy(torch, model, qparams, ctx, prompt, 8)
+                toks, lg, _ = uniform_greedy(torch, model, qparams, ctx,
+                                             prompt, 8)
             else:
-                lg = mla_forced(torch, model, qparams, ctx, prompt, toks)
+                lg = uniform_forced(torch, model, qparams, ctx, prompt, toks)
         res[backend] = (lg, rl.idx)
     torch.cuda.synchronize()
     (lk, rk), (lt, rt) = res["auto"], res["torch"]
-    rel = ((lk - lt).norm() / lt.norm()).item()
-    dev = (lk - lt).abs().max().item()
+    tie = _tie_agreement(torch, lk, lt, toks.T)
+    rel, dev, agree = tie["rel_l2"], tie["max_abs_diff"], tie["greedy_agree"]
     flips = sum(int((a != b).sum()) for a, b in zip(rk, rt))
     decisions = sum(a.numel() for a in rk)
-    agree = int((lt.argmax(-1).T == toks).sum())
     finite = bool(torch.isfinite(lk).all())
     log(f"deepseek serve-smoke {us:.1f} us/step; greedy tokens "
         f"{toks.tolist()}; torch backend re-run: logits relative L2 diff "
@@ -2593,6 +2844,369 @@ def deepseek_phase(torch, np):
                     "routing_decisions": decisions, "routing_flips": flips,
                     "greedy_agree": agree, "n_tokens": toks.numel()},
         "loss": loss, "launcher_smoke": smoke}
+
+
+# ------------------------------------------------------------ whisper path
+def whisper_phase(torch, np, rows):
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads, d_ff 4096, vocab 51865, LayerNorm,
+    GELU, biased projections; 769 M weights, 1.5 GB of bf16), weights from
+    torch.Generator seed 0, frame embeddings (the audio stub's input)
+    N(0, 1) from seed 1 in bf16: WHISPER_CALIB x 1504 x 1024, with
+    WHISPER_CALIB x 64 calibration tokens. The recipe: FlexRound W4 body,
+    W8 layers 0 and 23, A8, per-channel, mse observer, QDrop, minibatches of
+    WHISPER_CALIB (the whole set: the limit the baked encoder output sets).
+    First block 0's WHISPER_BLOCK0_ITERS iterations graphed against
+    graphs=False, bit for bit. Then the main path, counters zeroed just
+    before and read just after: all 24 decoder blocks at WHISPER_ITERS
+    iterations through the captured engine (the error sum must fall; the
+    export's deploy forwards must launch K1 in the mma regime and K3),
+    then uniform-batch serving (WHISPER_SERVE: batch 4, 16 prompt tokens,
+    16 greedy steps over 1504 frames) with the int8 self and cross caches
+    and with bf16 ones (the int8 caches must take fewer bytes); K1 and K2
+    must each run in both regimes. Request 0 is re-run along its int8 path
+    with the kernels and with the plain versions; the slot engine must
+    refuse the family (``unsupported_family:encdec``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_medium import WHISPER_CROSS_LEN
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.core.qtensor import tree_weight_bytes
+    from repro_torch.core.quant_config import QuantRecipe
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import kv as skv
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    frames = torch.randn((WHISPER_CALIB, WHISPER_CROSS_LEN, cfg.d_model),
+                         generator=gen, device=DEV).to(torch.bfloat16)
+    calib = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (WHISPER_CALIB, 64)), device=DEV)
+    wbytes = tree_weight_bytes(params)
+    log(f"whisper path: {cfg.name} ({cfg.enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}), weights {wbytes} B; frames {tuple(frames.shape)}")
+    recipe = QuantRecipe(method="flexround", w_bits=4, a_bits=8,
+                         w_granularity="per_channel", w_observer="mse",
+                         iters=WHISPER_ITERS, batch_size=WHISPER_CALIB,
+                         rules=("layers.0.*:w_bits=8",
+                                f"layers.{cfg.n_layers - 1}.*:w_bits=8"))
+    t0 = time.perf_counter()
+    x0, blocks, assemble = model.quant_blocks(params, calib, frames)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    recon0, errs0 = recon_graphs_equal(
+        torch, np, blocks[:1],
+        dataclasses.replace(recipe, iters=WHISPER_BLOCK0_ITERS), x0, 1,
+        "whisper block 0")
+
+    window = PathWindow(torch)
+    window.start()  # the whisper main path's run starts here
+    rc.reset_engine_stats()
+    t0 = time.perf_counter()
+    fin, astates, reports = rc.quantize_blocks(blocks, recipe, x0)
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    export_counts = ops.launch_counts()
+    st = rc.engine_stats()
+    errs = [(r.err_before, r.err_after) for r in reports]
+    before, after = sum(a for a, _ in errs), sum(b for _, b in errs)
+    steps = sum(r.iters for r in reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in reports)
+    got_w8 = sorted(i for i, layer in enumerate(fin)
+                    if any(qt.bits == 8 for qt in _qtensors(layer)))
+    log(f"whisper recon: {len(reports)} decoder blocks x {WHISPER_ITERS} "
+        f"iterations in {recon_s:.2f}s ({loop_s:.2f}s in the Adam loops, "
+        f"{steps / loop_s:.1f} steps/s; the encoder and x0 {encode_s:.2f}s); "
+        f"engines {st.engine_builds} built, {st.engine_hits} reused, "
+        f"{st.step_compiles} step captures")
+    log("whisper err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
+    log(f"whisper: sum of err_before {before:.6e}, sum of err_after "
+        f"{after:.6e}; export launches {export_counts}")
+    if len(reports) != cfg.n_layers or got_w8 != [0, cfg.n_layers - 1] or \
+            not all(math.isfinite(a) and math.isfinite(b) for a, b in errs) \
+            or not after < before or {r.engine for r in reports} != {"graph"}:
+        fail(f"whisper recon: {len(reports)} reports, W8 layers {got_w8}, "
+             f"errors {before} -> {after}, engines "
+             f"{[r.engine for r in reports]}")
+    if export_counts["dequant_matmul_w4[mma]"] == 0 or \
+            export_counts["qmatmul_int8"] == 0:
+        fail(f"whisper export did not launch K1 (mma) and K3: "
+             f"{export_counts}")
+    qparams = assemble(fin)
+    del x0, blocks, fin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S, n_new = WHISPER_SERVE
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)), device=DEV)
+    sframes = torch.randn((B, WHISPER_CROSS_LEN, cfg.d_model), generator=gen,
+                          device=DEV).to(torch.bfloat16)
+    ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
+    served = {}
+    with torch.no_grad():
+        for kind, kvq in (("int8", True), ("bf16", False)):
+            served[kind] = uniform_greedy(torch, model, qparams, ctx, prompt,
+                                          n_new, sframes, kv_quant=kvq)
+    counts = window.stop()  # ... and ends here
+    serve_counts = {k: counts[k] - export_counts[k] for k in counts}
+    log(f"whisper serve launches {serve_counts}")
+    rows.extend(check_path_shapes(torch, window, rows, "whisper-medium"))
+    if serve_counts["dequant_matmul_w4"] == 0 or \
+            serve_counts["dequant_matmul_w8"] == 0:
+        fail(f"whisper serving did not launch K1 and K2: {serve_counts}")
+    require_regimes(counts, "the whisper path")
+    (t8, l8, s8), (tb, lb, sb) = served["int8"], served["bf16"]
+    same = int((t8 == tb).sum())
+    log(f"whisper serve [batch {B}, {S} prompt tokens, {n_new} greedy steps, "
+        f"enc_len {WHISPER_CROSS_LEN}]: int8 self+cross caches "
+        f"{s8['us_per_step']:.1f} us/step, {s8['cache_bytes']} B; bf16 "
+        f"caches {sb['us_per_step']:.1f} us/step, {sb['cache_bytes']} B; "
+        f"greedy tokens equal {same}/{t8.numel()}")
+    if not s8["cache_bytes"] < sb["cache_bytes"] or not (
+            torch.isfinite(l8).all() and torch.isfinite(lb).all()) or \
+            l8.shape != (n_new + 1, B, cfg.vocab):
+        fail(f"whisper serve: cache bytes {s8['cache_bytes']} (int8) vs "
+             f"{sb['cache_bytes']} (bf16), logits {tuple(l8.shape)}")
+
+    # request 0 along its int8 greedy path: kernels, then plain versions
+    res = {}
+    with torch.no_grad():
+        for backend in ("auto", "torch"):
+            c = QuantCtx(mode="deploy", recipe=recipe, astates=astates,
+                         backend=backend)
+            res[backend] = uniform_forced(torch, model, qparams, c,
+                                          prompt[:1], t8[:1], sframes[:1],
+                                          kv_quant=True)[:, 0]
+    rck = _tie_agreement(torch, res["auto"], res["torch"], t8[0])
+    log(f"whisper: torch backend re-run of request 0: logits relative L2 "
+        f"diff {rck['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
+        f"{rck['max_abs_diff']:.4e}; greedy tokens {rck['greedy_agree']}/"
+        f"{rck['n_tokens']} identical, the others near-ties: "
+        f"{rck['ties_ok']}")
+    if not math.isfinite(rck["rel_l2"]) or rck["rel_l2"] > 5e-2 or \
+            not rck["ties_ok"]:
+        fail("whisper: kernel and plain-version serving disagree beyond "
+             "bf16 tolerance")
+    try:
+        ServeEngine(model, qparams, ctx)
+        refused = None
+    except skv.KVQuantUnsupported as e:
+        refused = e.reason
+    prof = profile_uniform(torch, model, qparams, ctx, prompt, "whisper",
+                           sframes, kv_quant=True)
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"whisper: the slot engine refused with {refused}; "
+        f"max_memory_allocated {peak} B; phase {phase_s:.1f}s")
+    if refused != "unsupported_family:encdec":
+        fail(f"whisper: the slot engine answered {refused}")
+    return counts, {
+        "weights_bytes": wbytes, "encode_s": encode_s,
+        "recon_block0": dict(recon0, errors=errs0), "recon_s": recon_s,
+        "loop_s": loop_s, "steps": steps, "steps_per_s": steps / loop_s,
+        "engine_stats": dataclasses.asdict(st), "err": errs,
+        "err_before_sum": before, "err_after_sum": after,
+        "export_launches": export_counts, "serve_launches": serve_counts,
+        "serve": {k: v[2] for k, v in served.items()},
+        "greedy_equal_int8_bf16": same, "recheck": rck, "refused": refused,
+        "path_shapes": sorted(window.shapes), "profile_decode": prof,
+        "max_memory_allocated": peak, "phase_s": phase_s}
+
+
+# -------------------------------------------------------------- mamba path
+def _to_float32(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _to_float32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float32(torch, v) for v in tree]
+    return tree.float()
+
+
+def scan_vs_decode(torch, model, params, ctx, toks, tol, label):
+    """MAMBA_PREFILL tokens of ``toks`` (B, 2 MAMBA_PREFILL) prefilled (one
+    SSD chunk) and MAMBA_DECODE teacher-forced decode steps, against the
+    chunked forward over all of ``toks``: the logits at the same positions
+    within ``tol`` relative L2, each greedy token of the decode equal to
+    the forward's or a near-tie there (``_tie_agreement``). Returns the
+    readings and the two sets of logits (T + 1, B, V)."""
+    P, T = MAMBA_PREFILL, MAMBA_DECODE
+    with torch.no_grad():
+        full = model.logits(params, model.backbone(params, toks, ctx))
+        full = full[:, P - 1:P + T].float().transpose(0, 1)  # (T + 1, B, V)
+        step = uniform_forced(torch, model, params, ctx, toks[:, :P],
+                              toks[:, P:P + T + 1])
+    torch.cuda.synchronize()
+    rows = [_tie_agreement(torch, step[:, b], full[:, b], step[:, b].argmax(1))
+            for b in range(toks.shape[0])]
+    res = {"rel_l2": ((step - full).norm() / full.norm()).item(),
+           "greedy_agree": sum(r["greedy_agree"] for r in rows),
+           "n_tokens": sum(r["n_tokens"] for r in rows),
+           "ties_ok": all(r["ties_ok"] for r in rows), "tolerance": tol}
+    log(f"mamba2 prefill {P} + {T} decode steps against the chunked forward "
+        f"over {2 * P} tokens (batch {toks.shape[0]}, {label}): logits "
+        f"relative L2 diff "
+        f"{res['rel_l2']:.4e} (tolerance {tol:g}), greedy tokens "
+        f"{res['greedy_agree']}/{res['n_tokens']} equal, the others "
+        f"near-ties: {res['ties_ok']}")
+    if not math.isfinite(res["rel_l2"]) or res["rel_l2"] > tol or \
+            not res["ties_ok"]:
+        fail("mamba2: the recurrent decode disagrees with the chunked scan")
+    return res, full, step
+
+
+def mamba_phase(torch, np, rows):
+    """mamba2-130m at full width and depth (24 layers, d_model 768, d_inner
+    1536 in 24 heads of 64, SSM state 128, conv 4, vocab 50280, chunk 256;
+    in_proj (768, 3352)), bf16, through the launcher: the trained phase's
+    command for it (``launcher_argv``: W4 body, W8 layers 0 and 23, A8,
+    QDrop, TRAIN_ITERS iterations, 64 x 64 tokens) with ``--serve-smoke
+    --serve``, run by ``preempt_and_resume`` (uninterrupted in process; a
+    subprocess SIGKILLed after block MAMBA_PREEMPT_AT's checkpoint, resumed
+    in process: bit for bit). The uninterrupted run is the main path: the
+    counters are zeroed just before it and read just after, K1 and K2 in
+    both regimes and K3 must launch, and every shape it gave them is held
+    against the plain versions (``check_path_shapes``). The error sum must
+    fall, ``--serve`` must print the skip line (``unsupported_family:ssm``).
+    Then ``scan_vs_decode`` in float32 on the fp weights (relative L2
+    1e-3) and in bf16 on the export, with the kernels and with the plain
+    versions (both within MAMBA_SCAN_TOL: the chunked path rounds the
+    conv's products to bf16, the recurrent one sums them in float32), and
+    each of its two paths with the kernels against the plain versions
+    (5e-2); serve-smoke's prompt decoded greedily and re-run plain; the
+    int8 cache refused (``kv_quant_unsupported:ssm``)."""
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.serve import kv as skv
+
+    t_phase = time.perf_counter()
+    argv = launcher_argv(TRAIN_ITERS, "mamba2-130m", MAMBA_LAST) + [
+        "--serve-smoke", "--serve"]
+    log("mamba2: python -m repro_torch.launch.quantize " + " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    window = PathWindow(torch)  # the uninterrupted run: the main path's
+    try:
+        sys.stdout = tee
+        pre = preempt_and_resume(torch, argv, MAMBA_PREEMPT_AT, "mamba",
+                                 window)
+    finally:
+        sys.stdout = tee.out
+    counts = window.counts
+    rows.extend(check_path_shapes(torch, window, rows, "mamba2-130m"))
+    run = pre.pop("result")
+    cfg, qparams = run.cfg, run.qparams
+    errs = pre["err"]
+    before, after = sum(a for a, _ in errs), sum(b for _, b in errs)
+    steps = sum(r.iters for r in run.reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in run.reports)
+    skip = f"serve: skipped arch={cfg.name} reason=unsupported_family:ssm"
+    got_w8 = sorted(i for i, layer in enumerate(qparams["layers"])
+                    if any(qt.bits == 8 for qt in _qtensors(layer)))
+    log(f"mamba2: {len(errs)} blocks, {steps} steps in {loop_s:.2f}s of Adam "
+        f"loops ({steps / loop_s:.1f} steps/s); uninterrupted launcher "
+        f"{pre['seconds']['uninterrupted']:.2f}s; serve-smoke "
+        f"{run.serve_smoke_us:.1f} us/step; launches {counts}")
+    log("mamba2 err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
+    log(f"mamba2: sum of err_before {before:.6e}, sum of err_after "
+        f"{after:.6e}; skip line printed: {skip in tee.text()}")
+    if (cfg.n_layers, cfg.d_model, cfg.ssm_state, cfg.vocab) != (
+            24, 768, 128, 50280) or got_w8 != [0, MAMBA_LAST] or \
+            not after < before or run.serve is not None or \
+            skip not in tee.text() or not math.isfinite(run.serve_smoke_us):
+        fail(f"mamba2 launcher: W8 layers {got_w8}, errors {before} -> "
+             f"{after}, serve {run.serve}, skip line "
+             f"{skip in tee.text()}")
+    if counts["qmatmul_int8"] == 0:
+        fail(f"the mamba2 path did not launch K3: {counts}")
+    require_regimes(counts, "the mamba2 path")
+
+    ctx = QuantCtx(mode="deploy", recipe=run.recipe, astates=run.astates)
+    model = run.model
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 2 * MAMBA_PREFILL)), device=DEV)
+    # the scan against the recurrence in float32 on the launcher's fp
+    # weights (seed 0), then in bf16 on its export through the kernels
+    fparams = _to_float32(torch, model.init(
+        torch.Generator(device=DEV).manual_seed(0)))
+    plain = QuantCtx(mode="deploy", recipe=run.recipe, astates=run.astates,
+                     backend="torch")
+    scan, logits = {}, {}
+    for kind, p, c, tol in (
+            ("float32", fparams, QuantCtx(mode="fp"), 1e-3),
+            ("bf16", qparams, ctx, MAMBA_SCAN_TOL),
+            ("bf16_plain", qparams, plain, MAMBA_SCAN_TOL)):
+        scan[kind], *logits[kind] = scan_vs_decode(
+            torch, model, p, c, toks, tol,
+            {"float32": "float32 fp weights", "bf16": "bf16 export, kernels",
+             "bf16_plain": "bf16 export, plain versions"}[kind])
+    # each regime's kernels against the plain versions on the same path:
+    # the chunked forward (mma) and the recurrent decode (decode regime);
+    # the bf16 limit of every plain re-run (on an H100 3.2e-2 and 3.0e-2,
+    # as serve-smoke's re-run)
+    for i, path in enumerate(("chunked", "decode")):
+        k, t = logits["bf16"][i], logits["bf16_plain"][i]
+        scan[f"kernels_vs_plain_{path}"] = rel = (
+            (k - t).norm() / t.norm()).item()
+        log(f"mamba2 {path} logits, kernels against plain versions: "
+            f"relative L2 {rel:.4e} (tolerance 5e-2)")
+        if not math.isfinite(rel) or rel > 5e-2:
+            fail(f"mamba2: the {path} path's kernels disagree with their "
+                 "plain versions beyond bf16 tolerance")
+    del fparams, logits
+
+    # serve-smoke's prompt: greedy with the kernels, then the plain versions
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator(
+        ).manual_seed(0)).to(DEV)
+    res = {}
+    with torch.no_grad():
+        gen_toks, res["auto"], _ = uniform_greedy(torch, model, qparams, ctx,
+                                                  prompt, 8)
+        res["torch"] = uniform_forced(torch, model, qparams, plain, prompt,
+                                      gen_toks)
+    rck = _tie_agreement(torch, res["auto"][:, 0], res["torch"][:, 0],
+                         gen_toks[0])
+    log(f"mamba2: torch backend re-run of serve-smoke's request 0: logits "
+        f"relative L2 diff {rck['rel_l2']:.4e} (tolerance 5e-2), max |diff| "
+        f"{rck['max_abs_diff']:.4e}; greedy tokens {rck['greedy_agree']}/"
+        f"{rck['n_tokens']} identical, the others near-ties: "
+        f"{rck['ties_ok']}")
+    if not math.isfinite(rck["rel_l2"]) or rck["rel_l2"] > 5e-2 or \
+            not rck["ties_ok"]:
+        fail("mamba2: kernel and plain-version serving disagree beyond bf16 "
+             "tolerance")
+    try:
+        model.init_cache(2, 8, kv_quant=True)
+        refused = None
+    except skv.KVQuantUnsupported as e:
+        refused = e.reason
+    prof = profile_uniform(torch, model, qparams, ctx, prompt, "mamba2")
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"mamba2: init_cache(kv_quant=True) refused with {refused}; "
+        f"max_memory_allocated {peak} B; phase {phase_s:.1f}s")
+    if refused != "kv_quant_unsupported:ssm":
+        fail(f"mamba2: the int8 cache answered {refused}")
+    return counts, dict(
+        pre, argv=argv, steps=steps, loop_s=loop_s,
+        steps_per_s=steps / loop_s, err_before_sum=before,
+        err_after_sum=after, serve_smoke_us=run.serve_smoke_us,
+        scan_vs_decode=scan, path_shapes=sorted(window.shapes),
+        profile_decode=prof,
+        recheck=rck, refused=refused, max_memory_allocated=peak,
+        phase_s=phase_s)
 
 
 def plain_loss(torch, model, params, batch, ctx):
@@ -2826,6 +3440,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    wh_counts, wh_path = whisper_phase(torch, np, rows)
+    log(f"whisper-medium path phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mb_counts, mb_path = mamba_phase(torch, np, rows)
+    log(f"mamba2-130m launcher phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     loss = loss_phase(torch, np)
     log(f"loss phase: {time.perf_counter() - t0:.1f}s")
 
@@ -2840,6 +3465,8 @@ def main() -> int:
                    "llama4-scout-17b-a16e": moe_counts[name],
                    "qwen2.5-14b": qwen_counts[name],
                    "deepseek-v3-671b": ds_counts[name],
+                   "whisper-medium": wh_counts[name],
+                   "mamba2-130m-trained": mb_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
@@ -2868,7 +3495,8 @@ def main() -> int:
          "recon_graphs": recon_graphs, "trained_path": trained,
          "preemption": preemption, "auto_bits_path": auto_bits,
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
-         "deepseek_path": ds_path, "loss": loss}, indent=1))
+         "deepseek_path": ds_path, "whisper_path": wh_path,
+         "mamba_path": mb_path, "loss": loss}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

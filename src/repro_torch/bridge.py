@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.qtensor import QTensor
 from repro_torch.device import DeviceLike, resolve_device
 
+_STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
 _QT_FIELDS = ("codes", "scale", "zero", "shape", "bits", "packed", "dtype",
               "pack_axis")
 
@@ -90,14 +91,15 @@ def _n_stacked(obj) -> int:
 
 
 def params(p: dict, device: DeviceLike = None) -> dict:
-    """A reference parameter tree -> the port's: ``layers`` (and deepseek's
-    ``dense_layers``) stacked as (L, ...) leaves (the reference's scanned
+    """A reference parameter tree -> the port's: ``layers`` (and
+    deepseek's ``dense_layers``, whisper's ``enc_layers`` and
+    ``dec_layers``) stacked as (L, ...) leaves (the reference's scanned
     form) are unstacked into a list of per-layer dicts; a list of layers
     stays a list. Every other subtree (``mtp``, whose ``layer`` is one
     unstacked layer) crosses as it is."""
     out = {}
     for k, v in p.items():
-        if k in ("layers", "dense_layers") and isinstance(v, dict):
+        if k in _STACKED and isinstance(v, dict):
             v = [_index(v, i) for i in range(_n_stacked(v))]
         out[k] = tree(v, device)
     return out

@@ -1,8 +1,9 @@
 """ArchConfig: one dataclass describing every assigned architecture.
 
 A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``).
-The dense, moe and vlm families are ported so far, but the dataclass keeps
-every field so configs stay field-for-field comparable with the reference.
+The dense, moe, vlm, encdec and ssm families are ported so far, but the
+dataclass keeps every field so configs stay field-for-field comparable with
+the reference.
 """
 from __future__ import annotations
 
@@ -87,8 +88,8 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink a config to smoke-test size, preserving structure (the
-    reference's ``reduced``, its dense, moe (MLA included) and vlm
-    branches)."""
+    reference's ``reduced``, its dense, moe (MLA included), vlm, encdec and
+    ssm branches)."""
     changes = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -105,7 +106,7 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         remat=False,
         dtype="float32",
     )
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "encdec", "ssm"):
         raise KeyError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                        "(ROADMAP Queue 1 item 9)")
     if cfg.is_moe:
@@ -117,6 +118,10 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.use_mla:
         changes.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
                        qk_rope_dim=8, v_head_dim=16, head_dim=24)
+    if cfg.family == "ssm":
+        changes.update(ssm_state=16, ssm_headdim=16)
+    if cfg.enc_layers:
+        changes.update(enc_layers=2)
     if cfg.n_patches:
         changes.update(n_patches=8)
     return dataclasses.replace(cfg, **changes)

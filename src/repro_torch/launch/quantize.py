@@ -50,7 +50,10 @@ run the launcher prints the engine's counters as the reference does
 
 Flags whose subsystem is not ported yet exit with an error naming the
 ROADMAP item: ``--mesh``/``--multi-pod`` (item 11) and ``--analyze``/
-``--analyze-mem`` (item 15).
+``--analyze-mem`` (item 15). An encdec arch (whisper-medium) exits before
+any work: its calibration needs frame embeddings the launcher cannot draw
+(the reference's launcher fails on it as well); its entry points are the
+library's.
 """
 from __future__ import annotations
 
@@ -179,7 +182,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     """Exit (non-zero, naming the ROADMAP item) on a flag whose subsystem
-    the port does not have yet; never ignore one silently."""
+    the port does not have yet, and on an encoder-decoder arch, whose frames
+    the launcher has no source for; never ignore one silently."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"repro_torch.launch.quantize: --arch {args.arch}: the encdec "
+            "family calibrates on (tokens, frames) pairs and the launcher has "
+            "no source of frame embeddings (the reference's launcher fails "
+            "here too: repro/launch/quantize.py:189 calls quant_blocks "
+            "without frames); quantize it through the library: "
+            "build_model(cfg).quant_blocks(params, tokens, frames), then "
+            "quantize_blocks (ROADMAP Queue 3)")
     waits = (
         (args.mesh is not None or args.multi_pod, "--mesh/--multi-pod",
          "distributed calibration", 11),

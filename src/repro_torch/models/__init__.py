@@ -1,1 +1,2 @@
-"""Model zoo of the port: the dense decoder-only transformer."""
+"""Model zoo of the port: the decoder-only transformer (dense, moe, vlm),
+the encoder-decoder (encdec) and mamba2 (ssm)."""

@@ -37,8 +37,21 @@ torch.set_num_threads(2)
 SMOLLM_SITES = ((576, 576), (576, 192), (1536, 576), (576, 1536))
 LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 MAIN_MS = (4, 16, 32, 64, 512)
-PLAN_CASES = [(M, K, N, packed) for M in MAIN_MS
-              for K, N in SMOLLM_SITES + LLAMA4_2D for packed in (True, False)]
+WHISPER_2D = ((1024, 1024), (1024, 4096), (4096, 1024))
+MAMBA_2D = ((768, 3352), (1536, 768))  # in_proj's N % 16 = 8
+PLAN_CASES = ([(M, K, N, packed) for M in MAIN_MS
+               for K, N in SMOLLM_SITES + LLAMA4_2D for packed in (True, False)]
+              # whisper-medium: decode at batch 4, the prefill's 4 x 16 rows,
+              # the export's 16 x 64; the cross K/V over 4 and 16 x 1504
+              # frames
+              + [(M, K, N, packed) for M in (4, 64, 1024) for K, N in WHISPER_2D
+                 for packed in (True, False)]
+              + [(M, 1024, 1024, packed) for M in (6016, 24064)
+                 for packed in (True, False)]
+              # mamba2-130m: decode at batch 2, the 2 x 16 prefill, the
+              # export's 64 x 64 rows
+              + [(M, K, N, packed) for M in (2, 32, 4096) for K, N in MAMBA_2D
+                 for packed in (True, False)])
 
 
 # ------------------------------------------------------------------ planner
@@ -63,7 +76,8 @@ def test_plan_at_main_path_shapes(M, K, N, packed):
     if gx * gy >= (k12.DECODE_BLOCKS if p.regime == "decode"
                    else k12.MMA_SPLIT_BELOW):
         assert splits == 1
-    assert p.vec_codes and p.vec_x  # every main-path shape is aligned
+    # every main-path x is aligned, and every row of codes but in_proj's
+    assert p.vec_x and p.vec_codes == (N % 16 == 0)
 
 
 @pytest.mark.parametrize("M,K,N,packed,x_ptr,codes_ptr,vec_x,vec_codes", [

@@ -38,7 +38,10 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.olmo_1b",
                "repro_torch.configs.phi3_vision_4_2b",
                "repro_torch.models.mla",
-               "repro_torch.configs.deepseek_v3_671b")
+               "repro_torch.configs.deepseek_v3_671b",
+               "repro_torch.models.encdec", "repro_torch.models.ssm",
+               "repro_torch.configs.whisper_medium",
+               "repro_torch.configs.mamba2_130m")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -72,6 +75,36 @@ def test_deepseek_entry_points_default_to_cuda(monkeypatch):
     _check_defaults_to_cuda(monkeypatch, "deepseek-v3-671b")
 
 
+def test_mamba2_entry_points_default_to_cuda(monkeypatch):
+    """mamba2's init, init_cache and launcher default to the card (its
+    int8 cache is refused, so the cache is asked for in float32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_smoke_config("mamba2-130m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    from repro_torch.launch import quantize
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize.main(["--arch", "mamba2-130m", "--smoke", "--iters", "0"])
+
+
+def test_whisper_entry_points_default_to_cuda(monkeypatch):
+    """whisper's init and int8 self and cross caches default to the card;
+    its entry points are the library's (the launcher refuses the
+    family before any work)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_smoke_config("whisper-medium"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8, 16, kv_quant=True)
+
+
 def _check_defaults_to_cuda(monkeypatch, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
@@ -87,17 +120,16 @@ def _check_defaults_to_cuda(monkeypatch, arch):
 
 
 def test_unported_architectures_raise():
-    """The families still to port raise naming their ROADMAP item (9); the
-    vlm family, the dense configs and both MoE configs (deepseek-v3
-    included) are ported."""
+    """The family still to port raises naming its ROADMAP item (9); the
+    dense, moe, vlm, encdec and ssm configs are ported."""
     from repro_torch.configs import ARCH_IDS, get_config
-    for name in ("whisper-medium", "mamba2-130m", "recurrentgemma-2b"):
-        with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 "
-                                           r"item 9"):
-            get_config(name)
+    with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 "
+                                       r"item 9"):
+        get_config("recurrentgemma-2b")
     assert set(ARCH_IDS) == {"qwen2.5-14b", "smollm-135m", "granite-3-2b",
                              "olmo-1b", "llama4-scout-17b-a16e",
-                             "deepseek-v3-671b", "phi-3-vision-4.2b"}
+                             "deepseek-v3-671b", "mamba2-130m",
+                             "whisper-medium", "phi-3-vision-4.2b"}
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
