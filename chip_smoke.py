@@ -247,7 +247,41 @@ printed):
               N % 16 = 8, scalar code loads), K3 there at M 512; K1 and K3
               at both mamba2 sites at the export's 4096 rows, K1 and K2 at
               out_proj (M 2).
-10. Loss    — ``model.loss`` (the chunked cross entropy, each chunk
+10. Hybrid  — recurrentgemma-2b at full width and depth (26 layers RRA:
+              18 RG-LRU and 8 local-attention blocks, d_model = lru_width
+              2560, 10 heads and 1 KV head of 256, geglu d_ff 7680, vocab
+              256000, window 2048; 7.10 GB of bf16), weights from
+              torch.Generator seed 0: blocks 1 (R) and 2 (A) of the
+              launcher's recipe graphed against graphs=False (bit for bit,
+              two engines); then, counters zeroed before and read after,
+              the launcher in process with the trained phase's command (W8
+              layers 0 and 25) and ``--serve-smoke --serve``: three
+              engines, the error sum must fall, the skip line
+              (``unsupported_family:hybrid``), K1 in both regimes and K3
+              (the W8 layers serve as W8A8: the hybrid's sites carry their
+              layer index, so its activation states apply), every shape
+              held against the plain versions (``check_path_shapes``).
+              On the export: a greedy decode (batch 2, 2040 prefilled
+              tokens, 16 steps: the ring of 2048 slots wraps) against the
+              teacher-forced full forward (``forward_vs_decode``) and
+              re-run along its tokens with the plain versions: bf16
+              without the activation states within RG_DECODE_TOL and 5e-2,
+              as exported (W4A8) within RG_A8_TOL (flipped A8 codes); in
+              float32 on the fp weights within 1e-3; the
+              int8 cache refused; 8 decode steps traced. The kernels phase
+              adds K1/K2/K3 at its four sites (M 2) and K1/K3 at the
+              export's 4096 rows.
+11. Training — ``launch.steps.make_train_step`` with remat on: smollm-135m
+              at full size (8 x 1024 tokens, 10 steps) and recurrentgemma-2b
+              at full width with 3 layers (4 x 2048, 5 steps): loss, gnorm,
+              ms per step (CUDA events), max_memory_allocated, finite
+              losses and norms; the reduced float32 configs' 3 steps on
+              the card
+              against the CPU's, and microbatch 2 against 1; the training
+              launcher (``--arch recurrentgemma-2b --smoke --steps 20
+              --ckpt-every 10``) SIGKILLed after its step-10 checkpoint and
+              resumed equals an unbroken run bit for bit.
+12. Loss    — ``model.loss`` (the chunked cross entropy, each chunk
               recomputed in the backward) against an unchunked float32
               ``cross_entropy`` over the same hidden states, in float32 at
               full width: olmo-1b with 2 layers, B = 2, S = 1000 (two chunks
@@ -339,6 +373,41 @@ MAMBA_DECODE = 16
 # the conv's products to bf16, the recurrence sums them in float32), and
 # in float32 2.2e-5; a wrong scan, decode or kernel is off by O(1)
 MAMBA_SCAN_TOL = 8e-2
+# recurrentgemma-2b (26 layers RRA, d_model = lru_width 2560, 10 heads and
+# 1 KV head of 256, geglu d_ff 7680, vocab 256000, window 2048): its four
+# site shapes ((2560, 256): wk/wv, the narrowest N of any path; w_down
+# 7680 deep), the W8 last layer, the export's rows (64 x 64 tokens)
+RG_2D = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
+RG_LAST = 25
+RG_EXPORT_M = 64 * 64
+RG_GRAPH_ITERS = 20  # blocks 1 (R) and 2 (A), graphed against graphs=False
+# the greedy decode over the export: batch 2, a 2040-token prefill and 16
+# steps, so the ring of 2048 slots wraps after 8; its logits against the
+# teacher-forced full forward: in float32 on the fp weights within 1e-3;
+# in bf16 on the export served without its activation states (W4A16, W8A16)
+# within RG_DECODE_TOL, the bound mamba2's bf16 scan against its decode is
+# held to (the recurrence and the full forward round in other places; on
+# an H100 4.42e-2), and re-run along its tokens with the plain versions
+# within 5e-2, as every plain re-run. Served as exported (W4A8, W8A8) each
+# bf16 rounding difference that moves an activation across a rounding
+# boundary of its per-tensor 8-bit grid flips a code, and 26 layers
+# amplify that: on an H100 the decode read 0.324 against the forward and
+# 0.179 against the plain versions. Those two are held to RG_A8_TOL, under
+# half of the sqrt(2) that unrelated logits read: a wrong scan, ring or
+# kernel is off by O(1); the kernels themselves are held at every shape
+# the path gives them (check_path_shapes)
+RG_PROMPT = 2040
+RG_DECODE = 16
+RG_DECODE_TOL = 8e-2
+RG_A8_TOL = 0.6
+# training: (arch, layers (None: all), batch, sequence, steps), each with
+# cfg.remat on; the reduced float32 configs held card against CPU; the
+# launcher's kill after its step-10 checkpoint and the resume to step 20
+TRAIN_RUNS = (("smollm-135m", None, 8, 1024, 10),
+              ("recurrentgemma-2b", 3, 4, 2048, 5))
+TRAIN_CHECK_ARCHS = ("smollm-135m", "recurrentgemma-2b")
+TRAIN_KILL_AT = 10
+TRAIN_STEPS = 20
 # the loss phase: (arch, layers, batch, text tokens, patch embeddings)
 LOSS_RUNS = (("olmo-1b", 2, 2, 1000, 0), ("phi-3-vision-4.2b", 2, 2, 256, 256))
 # the launcher's default is 200 (repro/launch/quantize.py); the phase has
@@ -925,6 +994,20 @@ def kernels_phase(torch):
     if any(r.get("vec_codes") or r.get("vec_b") for r in rows[n_rows:]
            if r["N"] == MAMBA_IN[1]):
         fail(f"mamba2 in_proj (N = {MAMBA_IN[1]}) planned 16-byte loads")
+    # recurrentgemma-2b's sites at its decode batch of 2: K1 (the W4A8
+    # body) and K3 (the W8A8 layers 0 and 25; w_down's 7680-deep
+    # contraction splits K in 3), with K2 beside K1; K1 and K3 at the
+    # export's 64 x 64 rows (the path's other shapes: check_path_shapes)
+    for K, N in RG_2D:
+        for name in k12_names:
+            rows.append(check_dequant(torch, k12, ref, name, 2, K, N,
+                                      torch.bfloat16, gen, True))
+        rows.append(check_int8(torch, k3, ref, 2, K, N, gen, timed=True))
+        rows.append(check_dequant(torch, k12, ref, "dequant_matmul_w4",
+                                  RG_EXPORT_M, K, N, torch.bfloat16, gen,
+                                  True))
+        rows.append(check_int8(torch, k3, ref, RG_EXPORT_M, K, N, gen,
+                               timed=True))
     torch.cuda.empty_cache()
     # K5 at the expert stacks: decode / prefill (C = 4) and export (C = 40)
     for M in (4, 40):
@@ -3209,6 +3292,452 @@ def mamba_phase(torch, np, rows):
         phase_s=phase_s)
 
 
+# ------------------------------------------------------------- hybrid path
+def forward_vs_decode(torch, model, params, ctx, prompt, generated, tol,
+                      label):
+    """``prompt`` (B, P) prefilled and ``generated`` (B, T + 1) fed along
+    by T decode steps (``uniform_forced``), against the teacher-forced
+    full forward (``backbone``) over the P + T tokens: the logits at the
+    same positions within ``tol`` relative L2, each decode step's greedy
+    token the forward's or a near-tie (``_tie_agreement``). Returns the
+    readings and the decode's logits (T + 1, B, V) in float32."""
+    P, T = prompt.shape[1], generated.shape[1] - 1
+    with torch.no_grad():
+        toks = torch.cat([prompt, generated[:, :T]], dim=1)
+        x, _ = model.backbone(params, toks, ctx)
+        full = model.logits(params, x[:, P - 1:]).float().transpose(0, 1)
+        del x
+        step = uniform_forced(torch, model, params, ctx, prompt, generated)
+    torch.cuda.synchronize()
+    rows = [_tie_agreement(torch, step[:, b], full[:, b], step[:, b].argmax(1))
+            for b in range(prompt.shape[0])]
+    res = {"rel_l2": ((step - full).norm() / full.norm()).item(),
+           "greedy_agree": sum(r["greedy_agree"] for r in rows),
+           "n_tokens": sum(r["n_tokens"] for r in rows),
+           "ties_ok": all(r["ties_ok"] for r in rows), "tolerance": tol}
+    log(f"recurrentgemma prefill {P} + {T} decode steps against the full "
+        f"forward over {P + T} tokens (batch {prompt.shape[0]}, {label}): "
+        f"logits relative L2 diff {res['rel_l2']:.4e} (tolerance {tol:g}), "
+        f"greedy tokens {res['greedy_agree']}/{res['n_tokens']} equal, the "
+        f"others near-ties: {res['ties_ok']}")
+    if not math.isfinite(res["rel_l2"]) or res["rel_l2"] > tol or \
+            not res["ties_ok"]:
+        fail(f"recurrentgemma: the decode ({label}) disagrees with the full "
+             "forward")
+    return res, step
+
+
+def hybrid_phase(torch, np, rows):
+    """recurrentgemma-2b at full width and depth (26 layers RRA: 18 RG-LRU
+    and 8 local-attention blocks, d_model = lru_width 2560, 10 query heads
+    and 1 KV head of 256, geglu d_ff 7680, vocab 256000, window 2048;
+    3.55 G weights, 7.10 GB of bf16), weights from torch.Generator seed 0.
+    First blocks 1 (R) and 2 (A) of the launcher's recipe, RG_GRAPH_ITERS
+    iterations graphed against graphs=False, bit for bit (two engines).
+    Then the main path, the counters zeroed just before and read just
+    after: the launcher in process with the trained phase's command
+    (``launcher_argv``: W4 body, W8 layers 0 and 25, A8, QDrop,
+    TRAIN_ITERS iterations, 64 x 64 tokens) and ``--serve-smoke --serve``:
+    three engines (R at W8, R at W4, A at W4) and their captures, the
+    error sum must fall, ``--serve`` must print its skip line
+    (``unsupported_family:hybrid``); K1 in both regimes and K3 must
+    launch (its sites carry their layer index, so the activation states
+    apply: the W8 layers serve as W8A8 through K3, the body as W4A8 through
+    K1), and every shape the run gave K1-K3 is held against the plain
+    versions (``check_path_shapes``). Then greedy decodes over the export
+    (batch 2, RG_PROMPT prefilled tokens, RG_DECODE steps: the ring of 2048
+    slots wraps), as exported and without the activation states, each
+    against the full forward (``forward_vs_decode``) and re-run along its
+    tokens with the plain versions (RG_A8_TOL; RG_DECODE_TOL and 5e-2),
+    the same in float32 on the fp weights (1e-3); the int8 cache refused;
+    8 decode steps traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.data import CalibrationSet, SyntheticTokens
+    from repro_torch.launch import quantize as launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import kv as skv
+
+    t_phase = time.perf_counter()
+    argv = launcher_argv(TRAIN_ITERS, "recurrentgemma-2b", RG_LAST) + [
+        "--serve-smoke", "--serve"]
+    args = launcher.build_parser().parse_args(argv)
+    recipe = launcher.build_recipe(args)
+    # one RRA period at full width: init draws the layers first, so these
+    # are the launcher's first three layers
+    cfg3 = dataclasses.replace(get_config(args.arch), n_layers=3)
+    model3 = build_model(cfg3)
+    params3 = model3.init(torch.Generator(device=DEV).manual_seed(0),
+                          device=DEV)
+    src = SyntheticTokens(vocab=cfg3.vocab, seq_len=args.seq, seed=0)
+    calib = torch.as_tensor(CalibrationSet.build(src, args.calib).tokens,
+                            device=DEV)
+    x0, blocks, _ = model3.quant_blocks(params3, calib)
+    recon12, errs12 = recon_graphs_equal(
+        torch, np, blocks[1:3], dataclasses.replace(recipe,
+                                                    iters=RG_GRAPH_ITERS),
+        x0, 2, "recurrentgemma blocks 1 (R) and 2 (A)")
+    del params3, x0, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("recurrentgemma: python -m repro_torch.launch.quantize "
+        + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    window = PathWindow(torch)
+    try:
+        sys.stdout = tee
+        window.start()  # the recurrentgemma main path's run starts here
+        t0 = time.perf_counter()
+        run = launcher.main(argv + ["--out", str(RUNS_DIR / "rg_export")])
+        counts = window.stop()  # ... and ends here
+        launcher_s = time.perf_counter() - t0
+    finally:
+        sys.stdout = tee.out
+    rows.extend(check_path_shapes(torch, window, rows, "recurrentgemma-2b"))
+    cfg, model, qparams = run.cfg, run.model, run.qparams
+    errs = [(r.err_before, r.err_after) for r in run.reports]
+    before, after = sum(a for a, _ in errs), sum(b for _, b in errs)
+    steps = sum(r.iters for r in run.reports)
+    loop_s = sum(r.iters / r.steps_per_s for r in run.reports)
+    st = rc.engine_stats()
+    skip = f"serve: skipped arch={cfg.name} reason=unsupported_family:hybrid"
+    got_w8 = sorted(i for i, layer in enumerate(qparams["layers"])
+                    if any(qt.bits == 8 for qt in _qtensors(layer)))
+    by_kind = {k: [r.steps_per_s for r, kind in zip(run.reports, model.kinds)
+                   if kind == k] for k in "RA"}
+    log(f"recurrentgemma: {len(errs)} blocks, {steps} steps in {loop_s:.2f}s "
+        f"of Adam loops ({steps / loop_s:.1f} steps/s; R blocks "
+        f"{np.mean(by_kind['R']):.1f}, A blocks {np.mean(by_kind['A']):.1f} "
+        f"steps/s); launcher {launcher_s:.2f}s; engines {st.engine_builds} "
+        f"built, {st.step_compiles} step captures; serve-smoke "
+        f"{run.serve_smoke_us:.1f} us/step; launches {counts}")
+    log("recurrentgemma err_before/err_after per block: "
+        + " ".join(f"{a:.4e}/{b:.4e}" for a, b in errs))
+    log(f"recurrentgemma: sum of err_before {before:.6e}, sum of err_after "
+        f"{after:.6e}; skip line printed: {skip in tee.text()}")
+    if (cfg.n_layers, cfg.d_model, cfg.lru_width, cfg.head_dim, cfg.vocab,
+            cfg.local_window) != (26, 2560, 2560, 256, 256000, 2048) or \
+            got_w8 != [0, RG_LAST] or not after < before or \
+            run.serve is not None or skip not in tee.text() or \
+            not math.isfinite(run.serve_smoke_us) or \
+            {r.engine for r in run.reports} != {"graph"} or \
+            st.engine_builds != 3 or st.step_compiles != 3:
+        fail(f"recurrentgemma launcher: W8 layers {got_w8}, errors {before} "
+             f"-> {after}, serve {run.serve}, skip line "
+             f"{skip in tee.text()}, {st}")
+    if counts["qmatmul_int8"] == 0 or any(
+            counts[f"dequant_matmul_w4[{r}]"] == 0 for r in ("decode", "mma")):
+        fail(f"the recurrentgemma path did not launch K1 in both regimes "
+             f"and K3: {counts}")
+
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, RG_PROMPT)), device=DEV)
+    ring = min(cfg.local_window, RG_PROMPT + RG_DECODE + 1)
+    if not RG_PROMPT < ring < RG_PROMPT + RG_DECODE:
+        fail(f"recurrentgemma: a ring of {ring} slots does not wrap")
+    checks, rechecks, greedy = {}, {}, {}
+    # as exported (W4A8, W8A8), then without the activation states
+    for tag, astates, tol in (("w4a8", run.astates, RG_A8_TOL),
+                              ("weights_only", {}, RG_DECODE_TOL)):
+        c = QuantCtx(mode="deploy", recipe=run.recipe, astates=astates)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            gen_toks, glogits, gstats = uniform_greedy(torch, model, qparams,
+                                                       c, prompt, RG_DECODE)
+        greedy[tag] = dict(gstats, seconds=time.perf_counter() - t0)
+        checks[tag], dec = forward_vs_decode(
+            torch, model, qparams, c, prompt, gen_toks, tol,
+            f"bf16 export, {tag}, kernels")
+        with torch.no_grad():
+            dec_plain = uniform_forced(
+                torch, model, qparams, QuantCtx(
+                    mode="deploy", recipe=run.recipe, astates=astates,
+                    backend="torch"), prompt, gen_toks)
+        rck = rechecks[tag] = _tie_agreement(
+            torch, dec.transpose(0, 1), dec_plain.transpose(0, 1), gen_toks)
+        ptol = tol if tag == "w4a8" else 5e-2
+        log(f"recurrentgemma greedy decode [{tag}, batch 2, {RG_PROMPT} + "
+            f"{RG_DECODE}]: {gstats['us_per_step']:.1f} us/step "
+            f"({greedy[tag]['seconds']:.2f}s with the prefill); forced along "
+            f"its tokens it equals the greedy logits: "
+            f"{bool(torch.equal(dec, glogits))}; plain versions: logits "
+            f"relative L2 diff {rck['rel_l2']:.4e} (tolerance {ptol:g}), "
+            f"greedy tokens {rck['greedy_agree']}/{rck['n_tokens']}, the "
+            f"others near-ties: {rck['ties_ok']}")
+        if not math.isfinite(rck["rel_l2"]) or rck["rel_l2"] > ptol or \
+                not rck["ties_ok"]:
+            fail(f"recurrentgemma: kernel and plain-version decode ({tag}) "
+                 "disagree beyond their tolerance")
+        del dec, dec_plain, glogits
+    ctx = QuantCtx(mode="deploy", recipe=run.recipe, astates=run.astates)
+    # float32 throughout (the ring too): the launcher's fp weights widened
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    fparams = _to_float32(torch, model.init(
+        torch.Generator(device=DEV).manual_seed(0)))
+    with torch.no_grad():
+        ftoks, _, _ = uniform_greedy(torch, model32, fparams,
+                                     QuantCtx(mode="fp"), prompt, RG_DECODE)
+    checks["float32"], _ = forward_vs_decode(
+        torch, model32, fparams, QuantCtx(mode="fp"), prompt, ftoks, 1e-3,
+        "float32 fp weights")
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        model.init_cache(2, 8, kv_quant=True)
+        refused = None
+    except skv.KVQuantUnsupported as e:
+        refused = e.reason
+    prof = profile_uniform(torch, model, qparams, ctx, prompt[:, :16],
+                           "recurrentgemma")
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"recurrentgemma: init_cache(kv_quant=True) refused with {refused}; "
+        f"max_memory_allocated {peak} B; phase {phase_s:.1f}s")
+    if refused != "kv_quant_unsupported:hybrid":
+        fail(f"recurrentgemma: the int8 cache answered {refused}")
+    return counts, dict(
+        argv=argv, recon_blocks_1_2=dict(recon12, errors=errs12),
+        launcher_s=launcher_s, steps=steps, loop_s=loop_s,
+        steps_per_s=steps / loop_s,
+        steps_per_s_by_kind={k: float(np.mean(v)) for k, v in by_kind.items()},
+        engine_stats=dataclasses.asdict(st), err=errs, err_before_sum=before,
+        err_after_sum=after, serve_smoke_us=run.serve_smoke_us,
+        greedy=greedy, decode_vs_forward=checks, recheck=rechecks,
+        refused=refused, path_shapes=sorted(window.shapes),
+        profile_decode=prof, max_memory_allocated=peak, phase_s=phase_s)
+
+
+# ---------------------------------------------------------------- training
+def _state_diff(torch, a, b):
+    """(leaves that differ, the largest |a - b| over them) of two training
+    states: tensors compared bit for bit, other leaves by value."""
+    from repro_torch.optim.adam import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return len(la) + len(lb), float("inf")
+    n, worst = 0, 0.0
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+                    x.reshape(-1).view(torch.uint8),
+                    y.reshape(-1).view(torch.uint8)):
+                continue
+            n += 1
+            worst = max(worst, (x.float() - y.float()).abs().max().item())
+        elif x != y:
+            n, worst = n + 1, float("inf")
+    return n, worst
+
+
+def _train_steps(torch, model, cfg, opt, state, batches, microbatch=1):
+    """``make_train_step`` over ``batches``: (state, losses, gnorms, ms per
+    step from CUDA events on the card)."""
+    from repro_torch.launch import steps
+    step = steps.make_train_step(model, cfg, opt, microbatch)
+    losses, gnorms, ms = [], [], []
+    for batch in batches:
+        on_card = next(iter(batch.values())).is_cuda
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        state, m = step(state, batch)
+        if on_card:
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    return state, losses, gnorms, ms
+
+
+def train_phase(torch, np):
+    """Training on the card (``launch.steps.make_train_step``: the fp
+    forward, its autograd gradient, AdamW with weight decay and clipping,
+    the optimizer of the arch's ``ARCH_MODE``), every run with cfg.remat on:
+    smollm-135m at full width and depth (batch 8 x 1024 tokens, 10 steps)
+    and recurrentgemma-2b at full width with 3 layers (one RRA period;
+    batch 4 x 2048, 5 steps), SyntheticTokens batches; each reports loss,
+    gnorm, ms per step (CUDA events) and max_memory_allocated, and must
+    take its steps with finite losses and norms (5-10 steps at the
+    reference's lr 3e-4 move the loss by less than its step-to-step
+    spread). Then the reduced float32 configs of both (TRAIN_CHECK_ARCHS):
+    3 steps on the card from the CPU's init and batches against the same 3
+    steps on the CPU (loss and gnorm within relative 1e-4; parameters within
+    1e-6 but at most 0.5% of a leaf's elements, none beyond 3 lr: Adam's
+    first steps follow the rounding of gradients near eps), and
+    ``microbatch=2`` against ``microbatch=1`` on the card (the same
+    tolerances). Last, ``python -m repro_torch.launch.train --arch
+    recurrentgemma-2b --smoke --steps 20 --ckpt-every 10`` in a subprocess,
+    SIGKILLed once it prints its step-10 checkpoint, then resumed in
+    process: its final state must equal an unbroken run's bit for bit."""
+    import os
+    import signal
+    import threading
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train as trainer
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adam import adam_init, tree_leaves
+
+    out = {"runs": {}, "card_vs_cpu": {}}
+    for arch, layers, B, S, n in TRAIN_RUNS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEV).manual_seed(0),
+                            device=DEV)
+        opt = steps.TRAIN_OPT[sharding.ARCH_MODE[arch]]
+        state = {"params": params, "opt": adam_init(params, opt), "step": 0}
+        del params
+        src = SyntheticTokens(vocab=cfg.vocab, seq_len=S, seed=0)
+        batches = [trainer.make_batch(cfg, src, i, B, S, DEV)
+                   for i in range(n)]
+        state, losses, gnorms, ms = _train_steps(torch, model, cfg, opt,
+                                                 state, batches)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        tok_s = B * S / (np.median(ms) / 1e3)
+        log(f"train [{arch}, {cfg.n_layers} layers, {n_params} params, "
+            f"remat {cfg.remat}, batch {B} x {S}]: loss "
+            + " ".join(f"{v:.4f}" for v in losses) + "; gnorm "
+            + " ".join(f"{v:.3f}" for v in gnorms) + "; ms per step "
+            + " ".join(f"{v:.1f}" for v in ms)
+            + f" (median {np.median(ms):.1f}, {tok_s:.0f} tokens/s); "
+            f"max_memory_allocated {peak} B")
+        if not cfg.remat or not all(map(math.isfinite, losses + gnorms)) \
+                or state["step"] != n or state["opt"]["count"] != n:
+            fail(f"train [{arch}]: loss {losses}, gnorm {gnorms}, step "
+                 f"{state['step']}")
+        out["runs"][arch] = dict(layers=cfg.n_layers, batch=B, seq=S,
+                                 n_params=n_params, loss=losses, gnorm=gnorms,
+                                 ms=ms, tokens_per_s=tok_s,
+                                 max_memory_allocated=peak)
+        del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lr = steps.TRAIN_OPT["dp"].lr
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        src = SyntheticTokens(vocab=cfg.vocab, seq_len=64, seed=0)
+        cpu_batches = [trainer.make_batch(cfg, src, i, 8, 64, "cpu")
+                       for i in range(3)]
+        opt = steps.TRAIN_OPT[sharding.ARCH_MODE[arch]]
+        res = {}
+        for tag, dev, mb in (("cpu", "cpu", 1), ("card", DEV, 1),
+                             ("card_mb2", DEV, 2)):
+            p = _to_device(torch, params, dev)
+            state = {"params": p, "opt": adam_init(p, opt), "step": 0}
+            batches = [{k: v.to(dev) for k, v in b.items()}
+                       for b in cpu_batches]
+            state, losses, gnorms, _ = _train_steps(torch, model, cfg, opt,
+                                                    state, batches, mb)
+            res[tag] = (tree_leaves(_to_device(torch, state["params"], "cpu")),
+                        losses, gnorms)
+        readings = {}
+        for tag in ("card", "card_mb2"):
+            leaves, losses, gnorms = res[tag]
+            ref_leaves, ref_losses, ref_gnorms = res["cpu"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                losses + gnorms, ref_losses + ref_gnorms))
+            worst, over = 0.0, []
+            for x, y in zip(leaves, ref_leaves):
+                d = (x.double() - y.double()).abs()
+                worst = max(worst, d.max().item())
+                over.append(((d > 1e-6).sum().item(), d.numel()))
+            allowed = all(k <= max(1, n // 200) for k, n in over)
+            readings[tag] = {"rel_loss_gnorm": rel, "max_param_diff": worst,
+                             "beyond_1e-6": max(over)}
+            log(f"train [{cfg.name}, float32, 3 steps] {tag} against the "
+                f"CPU: loss and gnorm relative {rel:.3e} (1e-4), parameters "
+                f"max |diff| {worst:.3e} (3 lr = {3 * lr:g}), elements "
+                f"beyond 1e-6 (of their leaf) "
+                + " ".join(f"{k}/{n}" for k, n in over if k)
+                + " (at most 0.5% of a leaf, one in a leaf under 200)")
+            if not rel <= 1e-4 or not worst <= 3 * lr or not allowed:
+                fail(f"train [{cfg.name}]: the card ({tag}) disagrees with "
+                     "the CPU")
+        out["card_vs_cpu"][arch] = readings
+
+    # the launcher killed after its step-10 checkpoint and resumed
+    argv = ["--arch", "recurrentgemma-2b", "--smoke", "--steps",
+            str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_KILL_AT)]
+    ckpt_a, ckpt_b = RUNS_DIR / "train_a", RUNS_DIR / "train_b"
+    for d in (ckpt_a, ckpt_b):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    unbroken = trainer.main(argv + ["--ckpt-dir", str(ckpt_a)])
+    unbroken_s = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv
+        + ["--ckpt-dir", str(ckpt_b)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+    timer = threading.Timer(300, child.kill)
+    timer.start()
+    killed, lines = False, []
+    try:
+        for line in child.stdout:
+            lines.append(line)
+            if line.startswith(f"checkpoint: step {TRAIN_KILL_AT} saved"):
+                child.send_signal(signal.SIGKILL)
+                killed = True
+                break
+    finally:
+        timer.cancel()
+        if child.poll() is None and not killed:
+            child.kill()
+        child.wait()
+        child.stdout.close()
+    child_s = time.perf_counter() - t0
+    saved = CheckpointManager(str(ckpt_b)).all_steps()
+    if not killed or child.returncode != -signal.SIGKILL or \
+            saved != [TRAIN_KILL_AT]:
+        fail(f"train launcher: the child was not killed after step "
+             f"{TRAIN_KILL_AT} (exit {child.returncode}, checkpoints "
+             f"{saved}):\n{''.join(lines)[-3000:]}")
+    t0 = time.perf_counter()
+    resumed = trainer.main(argv + ["--ckpt-dir", str(ckpt_b)])
+    resumed_s = time.perf_counter() - t0
+    n_diff, worst = _state_diff(torch, unbroken, resumed)
+    log(f"train launcher [recurrentgemma-2b-smoke, {TRAIN_STEPS} steps]: "
+        f"unbroken {unbroken_s:.2f}s; child killed after its step-"
+        f"{TRAIN_KILL_AT} checkpoint ({child_s:.2f}s), resumed "
+        f"{resumed_s:.2f}s; final states differ at {n_diff} leaves, largest "
+        f"|diff| {worst:.3e}")
+    if n_diff:
+        fail("train launcher: the resumed run differs from the unbroken one")
+    for d in (ckpt_a, ckpt_b):
+        shutil.rmtree(d, ignore_errors=True)
+    out["resume"] = dict(unbroken_s=unbroken_s, child_s=child_s,
+                         resumed_s=resumed_s, leaves_differ=n_diff,
+                         max_abs_diff=worst)
+    return out
+
+
+def _to_device(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(torch, v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def plain_loss(torch, model, params, batch, ctx):
     """The loss without chunks: the same backbone, then the logits of every
     position at once in float32 and ``torch.nn.functional.cross_entropy``,
@@ -3451,6 +3980,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    rg_counts, rg_path = hybrid_phase(torch, np, rows)
+    log(f"recurrentgemma-2b launcher phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training = train_phase(torch, np)
+    log(f"training phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     loss = loss_phase(torch, np)
     log(f"loss phase: {time.perf_counter() - t0:.1f}s")
 
@@ -3467,6 +4007,7 @@ def main() -> int:
                    "deepseek-v3-671b": ds_counts[name],
                    "whisper-medium": wh_counts[name],
                    "mamba2-130m-trained": mb_counts[name],
+                   "recurrentgemma-2b-trained": rg_counts[name],
                    "flexround_fake_quant": k4_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
@@ -3496,7 +4037,8 @@ def main() -> int:
          "preemption": preemption, "auto_bits_path": auto_bits,
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
          "deepseek_path": ds_path, "whisper_path": wh_path,
-         "mamba_path": mb_path, "loss": loss}, indent=1))
+         "mamba_path": mb_path, "recurrentgemma_path": rg_path,
+         "training": training, "loss": loss}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

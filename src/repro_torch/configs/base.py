@@ -1,9 +1,8 @@
 """ArchConfig: one dataclass describing every assigned architecture.
 
-A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``).
-The dense, moe, vlm, encdec and ssm families are ported so far, but the
-dataclass keeps every field so configs stay field-for-field comparable with
-the reference.
+A copy of ``repro/configs/base.py`` (the port imports nothing of ``repro``),
+field for field, for the six families: dense, moe, vlm, encdec, ssm and
+hybrid.
 """
 from __future__ import annotations
 
@@ -88,11 +87,14 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink a config to smoke-test size, preserving structure (the
-    reference's ``reduced``, its dense, moe (MLA included), vlm, encdec and
-    ssm branches)."""
+    reference's ``reduced``): 2 layers (3 for the hybrid family, one
+    ``RRA`` period), d_model 64, 4 heads of 16, vocab 128, float32."""
+    n_layers = {"hybrid": 3}.get(cfg.family, 2)
+    if cfg.first_dense:
+        n_layers = 2  # one dense + one moe
     changes = dict(
         name=cfg.name + "-smoke",
-        n_layers=2,
+        n_layers=max(n_layers, 2 if cfg.enc_layers else n_layers),
         d_model=64,
         n_heads=4 if cfg.n_heads else 0,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
@@ -106,9 +108,6 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         remat=False,
         dtype="float32",
     )
-    if cfg.family not in ("dense", "moe", "vlm", "encdec", "ssm"):
-        raise KeyError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                       "(ROADMAP Queue 1 item 9)")
     if cfg.is_moe:
         # capacity_factor=8 makes the reduced config dropless so decode vs
         # full-forward consistency is exact (production keeps 1.25 + drops)
@@ -120,6 +119,8 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
                        qk_rope_dim=8, v_head_dim=16, head_dim=24)
     if cfg.family == "ssm":
         changes.update(ssm_state=16, ssm_headdim=16)
+    if cfg.family == "hybrid":
+        changes.update(layer_pattern=cfg.layer_pattern, lru_width=64)
     if cfg.enc_layers:
         changes.update(enc_layers=2)
     if cfg.n_patches:

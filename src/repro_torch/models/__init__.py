@@ -1,2 +1,2 @@
 """Model zoo of the port: the decoder-only transformer (dense, moe, vlm),
-the encoder-decoder (encdec) and mamba2 (ssm)."""
+the encoder-decoder (encdec), mamba2 (ssm) and RecurrentGemma (hybrid)."""

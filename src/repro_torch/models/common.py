@@ -80,7 +80,7 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation, torch's gelu to erf
     return F.gelu(x, approximate="tanh")
 
@@ -93,12 +93,12 @@ def mlp(p: dict, x: torch.Tensor, ctx: QuantCtx, name: str,
     if act in ("swiglu", "geglu"):
         g = ctx.linear(f"{name}.w_gate", x, p["w_gate"], batch_dims=batch_dims)
         u = ctx.linear(f"{name}.w_up", x, p["w_up"], batch_dims=batch_dims)
-        nl = F.silu if act == "swiglu" else _gelu
+        nl = F.silu if act == "swiglu" else gelu
         h = nl(g.float()).to(x.dtype) * u
     elif act == "gelu":
         h = ctx.linear(f"{name}.w_up", x, p["w_up"], p.get("b_up"),
                        batch_dims=batch_dims)
-        h = _gelu(h.float()).to(x.dtype)
+        h = gelu(h.float()).to(x.dtype)
     else:
         raise ValueError(f"unknown act {act!r}")
     return ctx.linear(f"{name}.w_down", h, p["w_down"], p.get("b_down"),
@@ -128,9 +128,25 @@ def normal(gen: torch.Generator, shape, std: float, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
+def remat_call(enabled: bool, fn, *args):
+    """``fn(*args)``; when ``enabled`` and autograd records, through
+    ``torch.utils.checkpoint`` (non-reentrant): the activations inside
+    ``fn`` are recomputed in the backward instead of kept, the reference's
+    ``jax.checkpoint`` under ``cfg.remat``. Values and gradients are
+    unchanged."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  mult: float = 1.0) -> torch.Tensor:
-    return embed[tokens] * mult
+    """The rows of ``embed`` at ``tokens`` times ``mult``. Through
+    ``F.embedding``, whose backward sums each row's gradients in a fixed
+    order on the CPU; indexing's backward (``index_put_`` with
+    ``accumulate=True``) adds them with atomics there, so a training run
+    and its resumed copy would differ in the last bits."""
+    return F.embedding(tokens, embed) * mult
 
 
 def _chunk_loss(xb: torch.Tensor, lb: torch.Tensor, mb: torch.Tensor,

@@ -9,9 +9,9 @@ the encoder output.
 
 Parameters are a plain dict with the reference's keys; ``enc_layers`` and
 ``dec_layers`` are Python lists of per-layer dicts (a loop replaces the
-reference's ``lax.scan``). The reference wraps the layer bodies in
-``jax.checkpoint`` under ``cfg.remat``, which changes memory, not values;
-the port keeps their activations, as ``TransformerLM`` does. Caches are
+reference's ``lax.scan``). Under ``cfg.remat`` each layer is recomputed
+in the backward (``common.remat_call``; the reference's ``jax.checkpoint``),
+which changes memory, not values. Caches are
 dicts of tensors written in place: the self-attention cache grows a token
 per decode step, the cross cache holds the encoder's K/V, written once by
 ``prefill``. With ``kv_quant`` both are int8 codes with per-(token, head)
@@ -170,12 +170,15 @@ class EncDecLM:
         cfg = self.cfg
         B, S, D = frames.shape
         x = frames + _sinusoid(S, D, frames.device).to(frames.dtype)[None]
-        for p_l in params["enc_layers"]:
-            z = common.apply_norm("layernorm", x, p_l["ln1"])
+        def layer(p_l, h):
+            z = common.apply_norm("layernorm", h, p_l["ln1"])
             a, _ = _mha(p_l["attn"], z, z, ctx, "enc.attn", False, cfg)
-            x = x + a
-            z = common.apply_norm("layernorm", x, p_l["ln2"])
-            x = x + common.mlp(p_l["mlp"], z, ctx, "enc.mlp", "gelu")
+            h = h + a
+            z = common.apply_norm("layernorm", h, p_l["ln2"])
+            return h + common.mlp(p_l["mlp"], z, ctx, "enc.mlp", "gelu")
+
+        for p_l in params["enc_layers"]:
+            x = common.remat_call(cfg.remat, layer, p_l, x)
         return common.apply_norm("layernorm", x, params["enc_norm"])
 
     # ------------------------------------------------------------ decoder
@@ -236,12 +239,14 @@ class EncDecLM:
         x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
         kvs: List[Tuple] = []
         for p_l in params["dec_layers"]:
-            out = self._dec_layer(p_l, x, enc_out, ctx, "dec", collect=collect)
             if collect:
-                x = out[0]
-                kvs.append(out[1])
+                x, kv = self._dec_layer(p_l, x, enc_out, ctx, "dec",
+                                        collect=True)
+                kvs.append(kv)
             else:
-                x = out
+                x = common.remat_call(
+                    cfg.remat, lambda p, h: self._dec_layer(p, h, enc_out, ctx,
+                                                            "dec"), p_l, x)
         x = common.apply_norm("layernorm", x, params["dec_norm"])
         return x, (kvs if collect else None)
 

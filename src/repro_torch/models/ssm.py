@@ -229,11 +229,15 @@ class MambaLM:
                  collect_state: bool = False) -> torch.Tensor:
         """tokens (B, S) -> normed hidden (B, S, D). Sites are named
         ``layers.*``. ``collect_state`` is the reference's signature; it
-        changes nothing there either (``prefill`` collects the states)."""
+        changes nothing there either (``prefill`` collects the states).
+        Under ``cfg.remat`` each layer is recomputed in the backward."""
         del collect_state
+        cfg = self.cfg
         x = common.embed_tokens(params["embed"], tokens)
         for p_l in params["layers"]:
-            x, _ = layer_forward(p_l, x, self.cfg, ctx, "layers")
+            x = common.remat_call(
+                cfg.remat, lambda p, u: layer_forward(p, u, cfg, ctx,
+                                                      "layers")[0], p_l, x)
         return common.apply_norm("rmsnorm", x, params["final_norm"])
 
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:

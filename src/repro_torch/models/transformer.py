@@ -75,9 +75,8 @@ def _layer_params(gen, cfg, dtype, device, kind: str) -> dict:
 class TransformerLM:
     def __init__(self, cfg):
         if cfg.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense, moe and vlm families are "
-                "ported (ROADMAP Queue 1 item 9)")
+            raise ValueError(f"{cfg.name}: TransformerLM takes the dense, "
+                             f"moe and vlm families, not {cfg.family!r}")
         self.cfg = cfg
         self.kind = "moe" if cfg.is_moe else "dense"  # the kind of "layers"
 
@@ -180,7 +179,8 @@ class TransformerLM:
         -> (hidden (B, P + S, D), summed aux loss, the kv of every layer
         (both segments, in order) or None). Sites are named
         ``layers.<site>`` (no layer index; ``dense.<site>`` in deepseek's
-        leading dense layers), as in the reference's scanned forward."""
+        leading dense layers), as in the reference's scanned forward.
+        Under ``cfg.remat`` each layer is recomputed in the backward."""
         cfg = self.cfg
         x = common.embed_tokens(params["embed"], tokens, cfg.emb_mult)
         if extra_embeds is not None:
@@ -193,7 +193,8 @@ class TransformerLM:
         for key, kind in self._segments(params):
             name = "dense" if key == "dense_layers" else "layers"
             for p_l in params[key]:
-                x, a, kv = self.layer_apply(p_l, x, ctx, name, sin, cos, kind)
+                x, a, kv = common.remat_call(cfg.remat, self.layer_apply, p_l,
+                                             x, ctx, name, sin, cos, kind)
                 aux = aux + a
                 if collect_kv:
                     kvs.append(kv)

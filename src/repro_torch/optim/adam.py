@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 BLOCK = 128
+GROUP_ELEMS = 1 << 27  # leaves per functional update pass, in elements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,24 +49,26 @@ class AdamConfig:
 
 
 # ------------------------------------------------------------------ trees
-def _leaves(tree: Any, like: Any = None) -> List[Any]:
+def tree_leaves(tree: Any, like: Any = None) -> List[Any]:
     """Leaves of ``tree`` in sorted-key order; with ``like``, the subtrees
     of ``tree`` at the leaves of ``like`` (the reference's
     ``flatten_up_to``: a moment entry ``{"m", "v"}`` per parameter)."""
     like = tree if like is None else like
     if isinstance(like, dict):
-        return [x for k in sorted(like) for x in _leaves(tree[k], like[k])]
+        return [x for k in sorted(like) for x in tree_leaves(tree[k], like[k])]
     if isinstance(like, (list, tuple)):
-        return [x for t, l in zip(tree, like) for x in _leaves(t, l)]
+        return [x for t, l in zip(tree, like) for x in tree_leaves(t, l)]
     return [tree]
 
 
-def _unflatten(like: Any, it) -> Any:
-    """Rebuild ``like``'s structure from ``it`` (consumed in leaf order)."""
+def tree_unflatten(like: Any, leaves) -> Any:
+    """Rebuild ``like``'s structure from ``leaves``, consumed in leaf
+    order (an iterator passes through the recursion unchanged)."""
+    it = iter(leaves)
     if isinstance(like, dict):  # keys sorted, as jax.tree rebuilds a dict
-        return {k: _unflatten(like[k], it) for k in sorted(like)}
+        return {k: tree_unflatten(like[k], it) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, it) for v in like)
+        return type(like)(tree_unflatten(v, it) for v in like)
     return next(it)
 
 
@@ -110,14 +113,14 @@ def adam_init(params: Any, cfg: AdamConfig) -> dict:
         return {"m": _encode(z(), cfg.moment_dtype),
                 "v": _encode(z(), cfg.moment_dtype, second=True)}
 
-    leaves = _leaves(params)
-    mu = _unflatten(params, iter([one(p) for p in leaves]))
+    leaves = tree_leaves(params)
+    mu = tree_unflatten(params, [one(p) for p in leaves])
     return {"mu": mu, "count": 0}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares."""
-    leaves = _leaves(tree)
+    leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     sq = [torch.sum(torch.square(x.float())) for x in leaves]
@@ -170,12 +173,12 @@ def _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg: AdamConfig, c1, c2):
 
 
 def _flat_args(grads, params, lr_scale):
-    flat_p = _leaves(params)
-    flat_g = [g.float() for g in _leaves(grads, params)]
+    flat_p = tree_leaves(params)
+    flat_g = [g.float() for g in tree_leaves(grads, params)]
     if isinstance(lr_scale, (int, float)):
         flat_s = [float(lr_scale)] * len(flat_p)
     else:
-        flat_s = [float(s) for s in _leaves(lr_scale, params)]
+        flat_s = [float(s) for s in tree_leaves(lr_scale, params)]
     return flat_p, flat_g, flat_s
 
 
@@ -186,22 +189,46 @@ def _clipped(flat_g, cfg: AdamConfig, gnorm):
     return [g * clip for g in flat_g]
 
 
+def _groups(flat_p, max_elems: int):
+    """Consecutive index ranges of the leaves, each of at most
+    ``max_elems`` elements (a larger leaf alone)."""
+    start, n = 0, 0
+    for i, p in enumerate(flat_p):
+        if i > start and n + p.numel() > max_elems:
+            yield range(start, i)
+            start, n = i, 0
+        n += p.numel()
+    if start < len(flat_p):
+        yield range(start, len(flat_p))
+
+
 def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
                 lr_scale: Any = 1.0) -> Tuple[Any, dict, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm).
 
     ``lr_scale`` is a number applied to every leaf or a tree matching
     ``params`` whose leaves scale ``cfg.lr`` per leaf (the reconstruction
-    loop's per-site lr rules). Call it under ``torch.no_grad()``."""
+    loop's per-site lr rules). Call it under ``torch.no_grad()``. The
+    leaves are updated in groups of at most ``GROUP_ELEMS`` elements, so
+    the float32 temporaries of the update stay a group's, not the whole
+    tree's (a leaf's arithmetic does not depend on its group)."""
     count = state["count"] + 1
     flat_p, flat_g, flat_s = _flat_args(grads, params, lr_scale)
-    flat_mu = _leaves(state["mu"], params)
+    flat_mu = tree_leaves(state["mu"], params)
     gnorm = global_norm(flat_g)
     flat_g = _clipped(flat_g, cfg, gnorm)
     c1, c2 = _bias_corrections(cfg, count)
-    newp, new_mu = _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg, c1, c2)
-    return (_unflatten(params, iter(newp)),
-            {"mu": _unflatten(params, iter(new_mu)), "count": count}, gnorm)
+    newp, new_mu = [], []
+    for g in _groups(flat_p, GROUP_ELEMS):
+        p_g, mu_g = _new_leaves(
+            [flat_g[i] for i in g], [flat_mu[i] for i in g],
+            [flat_p[i] for i in g], [flat_s[i] for i in g], cfg, c1, c2)
+        for i in g:
+            flat_g[i] = None  # the clipped float32 gradient is spent
+        newp += p_g
+        new_mu += mu_g
+    return (tree_unflatten(params, newp),
+            {"mu": tree_unflatten(params, new_mu), "count": count}, gnorm)
 
 
 def adam_update_(grads: Any, mu: Any, params: Any, cfg: AdamConfig,
@@ -214,7 +241,7 @@ def adam_update_(grads: Any, mu: Any, params: Any, cfg: AdamConfig,
     call makes no host sync and reads no host step count. Call it under
     ``torch.no_grad()``."""
     flat_p, flat_g, flat_s = _flat_args(grads, params, lr_scale)
-    flat_mu = _leaves(mu, params)
+    flat_mu = tree_leaves(mu, params)
     if cfg.grad_clip is not None:
         flat_g = _clipped(flat_g, cfg, global_norm(flat_g))
     newp, new_mu = _new_leaves(flat_g, flat_mu, flat_p, flat_s, cfg, c1, c2)

@@ -65,8 +65,13 @@ def int8_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
 
 
 def cache_bytes(cache) -> int:
-    """Total bytes held by a cache dict (codes + scales, or raw K/V)."""
-    return sum(t.numel() * t.element_size() for t in cache.values())
+    """Total bytes held by a cache: every tensor of its dicts and lists
+    (codes + scales, raw K/V, recurrent states)."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(v) for v in cache.values())
+    if isinstance(cache, (list, tuple)):
+        return sum(cache_bytes(v) for v in cache)
+    return cache.numel() * cache.element_size()
 
 
 def hbm_per_slot_bytes(cache, slots: int) -> int:

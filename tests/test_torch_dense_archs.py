@@ -418,16 +418,25 @@ def test_olmo_launcher_two_step_reports_match(olmo_launches):
 
 @pytest.mark.parametrize("change,item", [(dict(family="hybrid"), "item 9")])
 def test_unported_pieces_raise_naming_their_roadmap_item(change, item):
+    """The last piece that raised here, the hybrid family (ROADMAP Queue 1
+    ``item``), is ported: ``build_model`` gives it ``GriffinLM``, nothing
+    names the item any longer, and ``TransformerLM`` refuses the family
+    as the other models refuse families not theirs."""
+    from repro_torch.models.transformer import TransformerLM
     cfg = dataclasses.replace(get_smoke_config("smollm-135m"), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg)
+    model = build_model(cfg)
+    assert type(model).__name__ == "GriffinLM" and model.cfg is cfg
+    with pytest.raises(ValueError, match="takes the dense, moe and vlm") as ei:
+        TransformerLM(cfg)
+    assert item not in str(ei.value)
 
 
 @pytest.mark.parametrize("family,cls", [("ssm", "MambaLM"),
-                                        ("encdec", "EncDecLM")])
+                                        ("encdec", "EncDecLM"),
+                                        ("hybrid", "GriffinLM")])
 def test_ported_families_build_their_models(family, cls):
-    """The ssm and encdec families, which raised here before they were
-    ported, build their own models; each refuses a config of another
+    """The ssm, encdec and hybrid families, which raised here before they
+    were ported, build their own models; each refuses a config of another
     family."""
     cfg = dataclasses.replace(get_smoke_config("smollm-135m"), family=family)
     model = build_model(cfg)

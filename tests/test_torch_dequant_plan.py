@@ -39,6 +39,9 @@ LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 MAIN_MS = (4, 16, 32, 64, 512)
 WHISPER_2D = ((1024, 1024), (1024, 4096), (4096, 1024))
 MAMBA_2D = ((768, 3352), (1536, 768))  # in_proj's N % 16 = 8
+# recurrentgemma-2b: the 2560-wide sites, wk/wv's N = 256 (one KV head of
+# 256) and the geglu MLP's 7680
+RG_2D = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
 PLAN_CASES = ([(M, K, N, packed) for M in MAIN_MS
                for K, N in SMOLLM_SITES + LLAMA4_2D for packed in (True, False)]
               # whisper-medium: decode at batch 4, the prefill's 4 x 16 rows,
@@ -51,7 +54,12 @@ PLAN_CASES = ([(M, K, N, packed) for M in MAIN_MS
               # mamba2-130m: decode at batch 2, the 2 x 16 prefill, the
               # export's 64 x 64 rows
               + [(M, K, N, packed) for M in (2, 32, 4096) for K, N in MAMBA_2D
-                 for packed in (True, False)])
+                 for packed in (True, False)]
+              # recurrentgemma-2b: decode at batch 2, serve-smoke's 2 x 16
+              # prefill, the 2 x 2040 prefill of the card's greedy decode,
+              # the export's 64 x 64 rows
+              + [(M, K, N, packed) for M in (2, 32, 4080, 4096)
+                 for K, N in RG_2D for packed in (True, False)])
 
 
 # ------------------------------------------------------------------ planner

@@ -256,9 +256,9 @@ def test_loss_and_gradients_match_jax_grad(lm):
              "mask": (rng.random((2, 40)) < 0.8).astype(np.float32),
              "frames": _frames((2, 20, cfg.d_model), seed=8)}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jl, jm), jg = jax.value_and_grad(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: lm["jmodel"].loss(p, jbatch, JQuantCtx(mode="fp")),
-        has_aux=True)(lm["jparams"])
+        has_aux=True))(lm["jparams"])
     params = bridge.params(lm["jparams"], CPU)
     for _, t, _ in _pairs(params, params):
         t.requires_grad_(True)
@@ -331,9 +331,11 @@ def _serve_both(lm, jparams, params, jctx, ctx, cache_kind, steps=4):
                                    torch.from_numpy(frames), cache, ctx)
     np.testing.assert_allclose(_np(h), np.asarray(jh), **F32)
     tok = toks[:, -1:]
+    jstep = jax.jit(lambda p, t, c, pos: lm["jmodel"].decode_step(p, t, c, pos,
+                                                                  jctx))
     for i in range(steps):
-        jlg, jcache = lm["jmodel"].decode_step(jparams, jnp.asarray(tok),
-                                               jcache, jnp.int32(10 + i), jctx)
+        jlg, jcache = jstep(jparams, jnp.asarray(tok), jcache,
+                            jnp.int32(10 + i))
         lg, cache = lm["model"].decode_step(params, torch.from_numpy(tok),
                                             cache, 10 + i, ctx)
         flips = _flips(cache, jcache)

@@ -41,7 +41,10 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.configs.deepseek_v3_671b",
                "repro_torch.models.encdec", "repro_torch.models.ssm",
                "repro_torch.configs.whisper_medium",
-               "repro_torch.configs.mamba2_130m")
+               "repro_torch.configs.mamba2_130m", "repro_torch.models.rglru",
+               "repro_torch.configs.recurrentgemma_2b",
+               "repro_torch.configs.shapes", "repro_torch.launch.sharding",
+               "repro_torch.launch.steps", "repro_torch.launch.train")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -120,16 +123,47 @@ def _check_defaults_to_cuda(monkeypatch, arch):
 
 
 def test_unported_architectures_raise():
-    """The family still to port raises naming its ROADMAP item (9); the
-    dense, moe, vlm, encdec and ssm configs are ported."""
+    """Every architecture of the reference is ported: the ten configs, in
+    the reference's order, each building its family's model; an unknown
+    name raises ``KeyError`` listing them."""
     from repro_torch.configs import ARCH_IDS, get_config
-    with pytest.raises(KeyError, match=r"not ported yet \(ROADMAP Queue 1 "
-                                       r"item 9"):
-        get_config("recurrentgemma-2b")
-    assert set(ARCH_IDS) == {"qwen2.5-14b", "smollm-135m", "granite-3-2b",
-                             "olmo-1b", "llama4-scout-17b-a16e",
-                             "deepseek-v3-671b", "mamba2-130m",
-                             "whisper-medium", "phi-3-vision-4.2b"}
+    from repro_torch.models.model import build_model
+    assert ARCH_IDS == ("qwen2.5-14b", "smollm-135m", "granite-3-2b",
+                        "olmo-1b", "recurrentgemma-2b",
+                        "llama4-scout-17b-a16e", "deepseek-v3-671b",
+                        "mamba2-130m", "whisper-medium", "phi-3-vision-4.2b")
+    families = {get_config(a).family for a in ARCH_IDS}
+    assert families == {"dense", "moe", "hybrid", "ssm", "encdec", "vlm"}
+    for arch in ARCH_IDS:
+        assert build_model(get_config(arch)).cfg.name == arch
+    with pytest.raises(KeyError, match="recurrentgemma-2b"):
+        get_config("gemma-7b")
+
+
+def test_recurrentgemma_entry_points_default_to_cuda(monkeypatch):
+    """recurrentgemma-2b's init, cache and launcher default to the card (its
+    int8 cache is refused, so the cache is asked for in float32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_smoke_config("recurrentgemma-2b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    from repro_torch.launch import quantize
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize.main(["--arch", "recurrentgemma-2b", "--smoke", "--iters",
+                       "0"])
+
+
+def test_train_launcher_defaults_to_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "recurrentgemma-2b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

@@ -28,17 +28,21 @@ torch.set_num_threads(2)
 SMOLLM_SITES = ((576, 576), (576, 192), (1536, 576), (576, 1536))
 LLAMA4_2D = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
 WHISPER_2D = ((1024, 1024), (1024, 4096), (4096, 1024))
+RG_2D = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
 # every K3 shape of chip_smoke.py: smollm M in {4, 64, 512}, the llama4 2-D
 # sites at M = 512 (the export pass), the ragged and split checks, and the
 # envelope's edge K = 32768; whisper-medium's export (16 x 64 decoder rows,
 # the cross K/V over 16 x 1504 frames) and mamba2-130m's (64 x 64 rows;
-# in_proj's N = 3352 is not a multiple of 16)
+# in_proj's N = 3352 is not a multiple of 16); recurrentgemma-2b's four
+# site shapes at its decode (the W8A8 first and last layers, batch 2) and
+# its export
 K3_SHAPES = ([(M, K, N) for M in (4, 64, 512) for K, N in SMOLLM_SITES]
              + [(512, K, N) for K, N in LLAMA4_2D]
              + [(7, 577, 200), (130, 577, 200), (130, 4097, 200),
                 (64, k3.K_MAX, 256)]
              + [(1024, K, N) for K, N in WHISPER_2D] + [(24064, 1024, 1024)]
-             + [(512, 768, 3352), (4096, 768, 3352), (4096, 1536, 768)])
+             + [(512, 768, 3352), (4096, 768, 3352), (4096, 1536, 768)]
+             + [(M, K, N) for M in (2, 4096) for K, N in RG_2D])
 
 
 def _written(M, K, N, p):
@@ -96,10 +100,12 @@ def test_plan_at_k3_shapes(M, K, N):
 def test_plan_splits_the_long_k_shapes():
     """At M = 512 only llama4's (5120, 1024) leaves SMs idle with K long
     enough to split, and at whisper's export M = 1024 only w_down (4096,
-    1024); the envelope's edge and the ragged split check split."""
+    1024); the envelope's edge and the ragged split check split; so does
+    recurrentgemma-2b's decode through w_down (7680, 2560), in 3."""
     assert [s for s in K3_SHAPES if k3.plan(*s).splits > 1] == [
         (512, 5120, 1024), (130, 4097, 200), (64, k3.K_MAX, 256),
-        (1024, 4096, 1024)]
+        (1024, 4096, 1024), (2, 7680, 2560)]
+    assert k3.plan(2, 7680, 2560).splits == 3
     assert k3.plan(1024, 4096, 1024).splits == 2
     assert k3.plan(512, 5120, 1024).splits == 2
     assert k3.plan(64, k3.K_MAX, 256).splits == 16

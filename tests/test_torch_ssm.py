@@ -396,9 +396,9 @@ def test_loss_and_gradients_match_jax_grad(lm):
              "labels": _tokens(cfg, (2, 64), seed=11),
              "mask": (rng.random((2, 64)) < 0.8).astype(np.float32)}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jl, jm), jg = jax.value_and_grad(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: lm["jmodel"].loss(p, jbatch, JQuantCtx(mode="fp")),
-        has_aux=True)(lm["jparams"])
+        has_aux=True))(lm["jparams"])
     params = bridge.params(lm["jparams"], CPU)
     for _, t, _ in _pairs(params, params):
         t.requires_grad_(True)
