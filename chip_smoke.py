@@ -291,6 +291,35 @@ printed):
               the head and two of layer 1's weights (1e-4 of the largest)
               must agree, and the chunked run must peak below the other in
               max_memory_allocated.
+13. Mesh    — data-parallel calibration (run after the auto-bits phase).
+              (a) An NCCL group of one rank in process: smollm-135m at full
+              width and depth through ``quantize_blocks`` with the
+              launcher's recipe at ``MESH_ITERS`` = 12 iterations, graphed,
+              under ``make_flat_mesh(1)`` and without a mesh: finalized
+              blocks, activation states, errors and curves equal bit for
+              bit, 2 engines and 2 captures each; the collectives the
+              captured steps issued (the minibatch's assembly and the
+              gradients', 2 a step) are counted, and 20 replays of block
+              1's step are traced; ``compressed_psum`` on the card equals
+              dequant(quant(g)). (b) The debug mesh's 8 ranks on the one
+              card (gloo: NCCL refuses two ranks on one device, so the
+              engines run eagerly) through ``python -m
+              torch.distributed.run --nproc-per-node 8 chip_smoke.py
+              --mesh-child DIR <launcher flags>``, each rank calling
+              ``repro_torch.launch.quantize.main`` with the smollm recipe,
+              ``--mesh debug --iters 12 --serve-smoke --serve``; rank 0
+              counts its launches (the main path of this phase) and records
+              its K1/K2/K3 shapes; every rank records its seconds, peak
+              memory and the collectives' share of its Adam loop. Held
+              against the single-process launcher at the same flags on the
+              same calibration set: block 0's first loss within
+              ``MESH_FIRST_TOL``, every block's error within a
+              factor ``MESH_FACTOR``, their sum within ``MESH_SUM_TOL``,
+              every site's layout and zero points equal (its codes follow
+              chaotic states: PERF.md §6); every K1/K2/K3 shape
+              the ranks gave that no earlier row held is held against its
+              plain version. (c) ``--mesh production`` in one process exits
+              non-zero naming the 256 ranks it needs.
 
 Every phase logs its seconds. The line before the last is the JSON kernel
 summary (K1-K5, launches per path); the last line
@@ -1274,7 +1303,8 @@ def device_window(trace_dir, mark):
     memcpy and memset intervals over the window's wall time (None when the
     trace holds no device activity); ``top5`` the device ops with the most
     time in it; ``host_syncs`` the runtime's synchronize calls and
-    ``copies_to_device`` the host-to-device copies that start in it."""
+    ``copies_to_device`` the host-to-device copies that start in it;
+    ``nccl_ops`` the device ops NCCL launched in it."""
     files = sorted(trace_dir.glob("*.json"))
     events = json.loads(files[-1].read_text())["traceEvents"]
     shutil.rmtree(trace_dir, ignore_errors=True)
@@ -1282,7 +1312,7 @@ def device_window(trace_dir, mark):
              and e.get("name") == mark]
     lo = min(e["ts"] for e in marks)
     hi = max(e["ts"] + e["dur"] for e in marks)
-    spans, by_name, syncs, h2d = [], {}, 0, 0
+    spans, by_name, syncs, h2d, nccl = [], {}, 0, 0, 0
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -1296,6 +1326,7 @@ def device_window(trace_dir, mark):
         a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
         if b > a:
             spans.append((a, b))
+            nccl += "nccl" in e["name"].lower()
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + (b - a)
     busy, end = 0.0, lo
     for a, b in sorted(spans):
@@ -1307,7 +1338,7 @@ def device_window(trace_dir, mark):
     return {"marks": len(marks), "window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / window_us if spans else None,
-            "device_ops": len(spans), "host_syncs": syncs,
+            "device_ops": len(spans), "nccl_ops": nccl, "host_syncs": syncs,
             "copies_to_device": h2d,
             "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
 
@@ -3869,6 +3900,415 @@ def loss_phase(torch, np):
     return out
 
 
+# -------------------------------------------------------------------- mesh
+MESH_ITERS = 12  # the reference's exact horizon (tests/test_sharded_recon.py)
+MESH_RANKS = 8   # the debug mesh (2, 4): 2 data-parallel ranks x 4 model
+MESH_BACKEND = "nccl"  # the in-process group of one rank
+# The 8 ranks against one process (PERF.md §6). Float summation
+# order differs, and Adam's first steps turn a near-zero gradient's sign
+# into a whole step of lr: a rounding choice flips by one level, a W8
+# channel's scale (lr 3e-3 against scales of ~1e-3) moves its codes by
+# many (block 0's loss jumps from ~1e-3 to ~0.4 at its first step on
+# either side), and block 0 (W8) passes its export's differences on to
+# every later block's input. Only block 0's first loss (its inputs, states
+# and masks the same on both sides, before any update) is comparable
+# tightly. Measured on the CPU with this recipe (the smoke model through
+# the launcher, 8 ranks; a 6-layer smoke model, 2 ranks, 3 seeds): block 0's
+# first loss within 1e-7, its second within 1.5e-2, block errors within a
+# factor 1.47, error sums within 28.5%. The codes follow the states: up to
+# 94% of a W8 site's bytes and, at full size on the card, 42% of a W4
+# site's bytes differ by more than one level (PERF.md §6), so the
+# export is held by its errors, its sites' layout and its zero points (the
+# observer's grid from the same weights), which must be equal.
+MESH_FIRST_TOL = 1e-5    # relative, block 0's first loss
+MESH_FACTOR = 2.0        # each block's err_after within this factor
+MESH_SUM_TOL = 0.5       # relative, the sum of err_after
+
+
+def mesh_argv():
+    """The mesh phase's launcher flags (the launcher's smollm recipe)."""
+    return launcher_argv(MESH_ITERS) + ["--serve-smoke", "--serve"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _count_collectives(torch, counts):
+    """Wrap ``DataParallel.all_reduce`` and ``assemble`` to count the calls
+    and those made while a CUDA graph captures; returns the undo."""
+    from repro_torch.launch import mesh as meshes
+    real = {n: getattr(meshes.DataParallel, n) for n in ("all_reduce",
+                                                          "assemble")}
+
+    def wrap(name, fn):
+        def counted(self, *args, **kwargs):
+            counts["calls"] += 1
+            if torch.cuda.is_current_stream_capturing():
+                counts["captured"] += 1
+            return fn(self, *args, **kwargs)
+        return counted
+
+    for n, fn in real.items():
+        setattr(meshes.DataParallel, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in real.items():
+            setattr(meshes.DataParallel, n, fn)
+    return undo
+
+
+def mesh_world1_check(torch, np):
+    """(a) of the mesh phase: an NCCL group of one rank in process."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.data import CalibrationSet, SyntheticTokens
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import quantize as launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import profiler
+    from repro_torch.optim import adam, compress
+
+    args = launcher.build_parser().parse_args(launcher_argv(MESH_ITERS))
+    recipe = launcher.build_recipe(args)
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    calib = torch.as_tensor(CalibrationSet.build(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=args.seq, seed=0), args.calib).tokens).to(DEV)
+    x0, blocks, _ = model.quant_blocks(params, calib)
+    kwargs = ({"device_id": torch.device(DEV, 0)} if MESH_BACKEND == "nccl"
+              else {})
+    dist.init_process_group(MESH_BACKEND, init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1, **kwargs)
+    out = {"backend": dist.get_backend()}
+    try:
+        mesh = meshes.make_flat_mesh(1, device_type=DEV)
+        runs, coll = {}, {"calls": 0, "captured": 0}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            rc.reset_engine_stats()
+            undo = _count_collectives(torch, coll) if m is not None else None
+            t0 = time.perf_counter()
+            try:
+                runs[tag] = rc.quantize_blocks(blocks, recipe, x0, mesh=m)
+                torch.cuda.synchronize()
+            finally:
+                if undo is not None:
+                    undo()
+            st = rc.engine_stats()
+            out[tag] = {"seconds": time.perf_counter() - t0,
+                        "engines": st.engine_builds,
+                        "captures": st.step_compiles}
+            reps = runs[tag][2]
+            if (st.engine_builds, st.step_compiles) != (2, 2) or any(
+                    r.engine != "graph" for r in reps):
+                fail(f"mesh world 1 [{tag}]: {st}, engines "
+                     f"{sorted({r.engine for r in reps})}")
+        (fp, ap, rp), (fm, am, rm) = runs["plain"], runs["mesh"]
+        diff = (_same_tree(torch, fp, fm, "finalized")
+                + _same_tree(torch, ap, am, "astates"))
+        errs = [(r.err_before, r.err_after) for r in rp]
+        if [(r.err_before, r.err_after) for r in rm] != errs:
+            diff.append("errors")
+        step = _first_curve_diff(np, rp, rm)
+        out.update(collectives=coll, tensors_differ=len(diff),
+                   first_curve_diff=step, err=errs)
+        log(f"mesh world 1 ({out['backend']}): smollm-135m, {len(blocks)} blocks x "
+            f"{MESH_ITERS} steps graphed, mesh=make_flat_mesh(1) against "
+            f"mesh=None: {len(diff)} tensors differ, first curve difference "
+            f"{step}; plain {out['plain']['seconds']:.2f}s, mesh "
+            f"{out['mesh']['seconds']:.2f}s; collectives issued {coll['calls']}"
+            f", {coll['captured']} of them inside the 2 captured steps")
+        if diff or step is not None:
+            fail(f"mesh world 1: the mesh run differs from mesh=None: "
+                 f"{diff[:10]}, first curve difference {step}")
+        if coll["captured"] != 4:  # 2 engines x (assembly + gradients)
+            fail(f"mesh world 1: the captured steps issued {coll['captured']} "
+                 "collectives, not 2 each")
+
+        # 20 replays of block 1's captured step under the mesh, traced
+        with torch.no_grad():
+            x1 = blocks[0].apply(blocks[0].params, x0, QuantCtx(mode="fp"))
+            y1 = blocks[1].apply(blocks[1].params, x1, QuantCtx(mode="fp"))
+        steps = 20
+        r20 = dataclasses.replace(recipe, iters=steps)
+        rc.clear_engine_cache()
+        rc.reconstruct_block(blocks[1], r20, x1, y1, chunk=steps, mesh=mesh)
+        d = RUNS_DIR / "profile_mesh"
+        shutil.rmtree(d, ignore_errors=True)
+        with profiler.trace(str(d)):
+            rc.reconstruct_block(blocks[1], r20, x1, y1, chunk=steps,
+                                 mesh=mesh)
+        win = device_window(d, "recon.chunk")
+        rc.clear_engine_cache()
+        out["replays"] = win
+        log(f"mesh world 1: 20 replays of block 1's step traced: "
+            f"{win['device_ops'] / steps:.0f} device ops a step, "
+            f"{win['nccl_ops']} of them NCCL's (one rank reduces in place "
+            f"without device work), window {win['window_ms']:.3f} ms")
+
+        # compressed_psum over the group against dequant(quant(g))
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        tree = {k: torch.randn(shape, generator=gen, device=DEV)
+                for k, shape in (("w_up", (576, 1536)),
+                                 ("w_down", (1536, 576)), ("norm", (577,)))}
+        red, res = compress.compressed_psum(tree)
+        bad = [k for k, g in tree.items()
+               if not torch.equal(red[k], adam._dq8(*adam._q8(g), g.shape))
+               or not torch.equal(res[k], g - red[k])]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            compress.compressed_psum(tree)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 10  # eager: the collective is NCCL's
+        out["compressed_psum"] = {"ms": ms, "bad": bad}
+        log(f"mesh world 1: compressed_psum of {sum(g.numel() for g in tree.values())} "
+            f"gradients on the card: {ms:.4f} ms, equal to dequant(quant(g)) "
+            f"at {len(tree) - len(bad)} of {len(tree)} leaves")
+        if bad:
+            fail(f"compressed_psum differs from dequant(quant(g)) at {bad}")
+    finally:
+        meshes.shutdown()
+    return out
+
+
+def mesh_child(out_dir: str, argv) -> int:
+    """One rank of the mesh phase's launcher run (under torchrun): the
+    launcher's ``main(argv)``; rank 0's launch counters and K1/K2/K3 shapes
+    (``PathWindow``); every rank's seconds, peak memory and its
+    collectives' seconds inside the Adam loops (the device synced around
+    each) into ``out_dir/rank<r>.json``."""
+    import os
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import quantize as launcher
+
+    rank = int(os.environ["RANK"])
+    coll = {"calls": 0, "loop_calls": 0, "loop_s": 0.0, "in_loop": False}
+    real = {n: getattr(meshes.DataParallel, n) for n in ("all_reduce",
+                                                          "assemble")}
+    real_run = rc._Engine.run
+
+    def timed(fn):
+        def wrap(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            coll["calls"] += 1
+            if coll["in_loop"]:
+                coll["loop_calls"] += 1
+                coll["loop_s"] += time.perf_counter() - t
+            return res
+        return wrap
+
+    def run(self, *args, **kwargs):
+        coll["in_loop"] = True
+        try:
+            return real_run(self, *args, **kwargs)
+        finally:
+            coll["in_loop"] = False
+
+    for n, fn in real.items():
+        setattr(meshes.DataParallel, n, timed(fn))
+    rc._Engine.run = run
+    window = PathWindow(torch) if rank == 0 else None
+    torch.cuda.reset_peak_memory_stats()
+    if window is not None:
+        window.start()  # the mesh path's run starts here
+    t0 = time.perf_counter()
+    res = launcher.main(argv)
+    torch.cuda.synchronize()
+    counts = window.stop() if window is not None else None
+    loop_s = sum(r.iters / r.steps_per_s for r in res.reports
+                 if r.steps_per_s > 0)
+    doc = {"rank": rank, "seconds": time.perf_counter() - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "collectives": coll["calls"], "loop_collectives": coll["loop_calls"],
+           "loop_collective_s": coll["loop_s"], "loop_s": loop_s,
+           "err": [(r.err_before, r.err_after) for r in res.reports],
+           "loss0": [float(v) for v in res.reports[0].loss_curve],
+           "engines": sorted({r.engine for r in res.reports})}
+    if window is not None:
+        served = res.serve
+        doc.update(counts=counts, shapes=sorted(window.shapes),
+                   serve_smoke_us=res.serve_smoke_us,
+                   served_tokens=sum(len(v) for v in served["outputs"].values()),
+                   serve_s=served["seconds"])
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(doc))
+    return 0
+
+
+def mesh_launcher_check(torch, np, rows):
+    """(b) of the mesh phase: the debug mesh's 8 ranks through torchrun,
+    against one process."""
+    import os
+
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import CalibrationSet, SyntheticTokens
+    from repro_torch.launch import quantize as launcher
+
+    d = RUNS_DIR / "mesh"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    argv = mesh_argv() + ["--mesh", "debug", "--out", str(d / "mesh")]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(MESH_RANKS), "--master-addr", "localhost", "--master-port",
+           str(_free_port()), str(ROOT / "chip_smoke.py"), "--mesh-child",
+           str(d)] + argv
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with open(d / "torchrun.log", "w") as fh:
+        proc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                              env=env, cwd=str(ROOT), timeout=600)
+    mesh_s = time.perf_counter() - t0
+    text = (d / "torchrun.log").read_text()
+    if proc.returncode != 0:
+        fail(f"mesh: the {MESH_RANKS}-rank launcher run exited "
+             f"{proc.returncode}:\n{text[-4000:]}")
+    ranks = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    for line in text.splitlines():
+        if line.startswith(("distributed: rank 0", "recon: the mesh",
+                            "calibration:", "quantized ", "serve")):
+            log(f"  [rank 0] {line}")
+
+    args = launcher.build_parser().parse_args(mesh_argv() + [
+        "--out", str(d / "one")])
+    cfg = get_config(args.arch)
+    cal, _ = CalibrationSet.build_sharded(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=args.seq, seed=0), args.calib, 2)
+    t0 = time.perf_counter()
+    one = launcher.run(args, calib_tokens=cal.tokens)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+
+    errs = [tuple(e) for e in ranks[0]["err"]]
+    one_errs = [(r.err_before, r.err_after) for r in one.reports]
+    factor = [max(a[1] / b[1], b[1] / a[1]) for a, b in zip(errs, one_errs)]
+    first = float(one.reports[0].loss_curve[0])
+    prefix = abs(ranks[0]["loss0"][0] - first) / first
+    same_ranks = all([tuple(e) for e in r["err"]] == errs for r in ranks)
+    sum_rel = abs(sum(e[1] for e in errs) - sum(e[1] for e in one_errs)) \
+        / sum(e[1] for e in one_errs)
+    tree, _ = load_pytree(str(d / "mesh"), device=DEV)
+    shares, far, layout = {}, {}, []
+    for i, (tl, ol) in enumerate(zip(tree["params"]["layers"],
+                                     one.qparams["layers"])):
+        for name, qt in _site_qtensors_of(tl):
+            oq = dict(_site_qtensors_of(ol))[name]
+            site = f"layers.{i}.{name}"
+            if (qt.shape, qt.bits, qt.packed, qt.pack_axis) != (
+                    oq.shape, oq.bits, oq.packed, oq.pack_axis) or \
+                    not torch.equal(qt.zero, oq.zero):
+                layout.append(site)
+            a, b = qt.codes.int(), oq.codes.int()
+            shares[site] = float((a != b).float().mean())
+            if qt.bits == 4 and qt.packed:
+                apart = (((a & 15) - (b & 15)).abs() > 1) | (
+                    ((a >> 4) - (b >> 4)).abs() > 1)
+                far[site] = float(apart.float().mean())
+    worst = max(far, key=far.get)
+    loop = [r["loop_collective_s"] / max(r["loop_s"], 1e-9) for r in ranks]
+    r0 = ranks[0]
+    log(f"mesh: {MESH_RANKS} ranks (gloo) in {mesh_s:.2f}s against one "
+        f"process in {one_s:.2f}s; per rank "
+        + ", ".join(f"{r['seconds']:.1f}s/{r['max_memory_allocated'] / 2**30:.2f}"
+                    "GiB" for r in ranks)
+        + f"; collectives {100 * min(loop):.1f}-{100 * max(loop):.1f}% of "
+        f"the Adam loops ({r0['loop_collectives']} calls on rank 0 in "
+        f"{r0['loop_s']:.2f}s); engines {r0['engines']}")
+    log(f"mesh: block 0's losses {ranks[0]['loss0'][:3]} against one "
+        f"process's {[float(v) for v in one.reports[0].loss_curve[:3]]}: the "
+        f"first {prefix:.3e} apart (tolerance {MESH_FIRST_TOL}); err_after "
+        f"apart by a "
+        f"factor of at most {max(factor):.4f} (block "
+        f"{factor.index(max(factor))}; tolerance {MESH_FACTOR}); error sums "
+        f"{sum(e[1] for e in errs):.4f} (mesh) and "
+        f"{sum(e[1] for e in one_errs):.4f} (one), {sum_rel:.4f} apart "
+        f"(tolerance {MESH_SUM_TOL}); {len(shares)} sites, {len(layout)} "
+        f"with another layout or zero point; code bytes differing: mean "
+        f"{sum(shares.values()) / len(shares):.4f}, W4 bytes more than one "
+        f"level apart: mean {sum(far.values()) / len(far):.4f}, max "
+        f"{far[worst]:.4f} at {worst}; every rank's errors identical: "
+        f"{same_ranks}; rank 0 served "
+        f"{r0['served_tokens']} tokens in {r0['serve_s']:.2f}s, serve-smoke "
+        f"{r0['serve_smoke_us']:.1f} us a step")
+    if not same_ranks or prefix > MESH_FIRST_TOL or \
+            max(factor) > MESH_FACTOR or sum_rel > MESH_SUM_TOL or layout \
+            or r0["engines"] != ["eager"]:
+        fail(f"mesh: the {MESH_RANKS}-rank run strays from one process "
+             f"(first loss {prefix:.3e}, factor {max(factor):.4f}, sum "
+             f"{sum_rel:.4f}, layout or zero points {layout[:5]}, ranks "
+             f"agree {same_ranks}, engines {r0['engines']})")
+
+    counts = r0["counts"]
+    for k in ("dequant_matmul_w4", "dequant_matmul_w8", "qmatmul_int8"):
+        if counts[k] == 0:
+            fail(f"mesh: rank 0 did not launch {k}: {counts}")
+    window = PathWindow(torch)
+    window.shapes = {tuple(s) for s in r0["shapes"]}
+    held_before = len(rows)
+    new = check_path_shapes(torch, window, rows, "smollm-135m-mesh")
+    rows.extend(new)
+    log(f"mesh: rank 0 launches {counts}; {len(window.shapes)} K1/K2/K3 "
+        f"shapes, {len(window.shapes) - len(new)} held before this phase, "
+        f"{len(new)} held now ({held_before} rows before)")
+    shutil.rmtree(d, ignore_errors=True)
+    return counts, {"seconds": mesh_s, "one_seconds": one_s, "ranks": ranks,
+                    "first_loss_rel": prefix, "err_factor": factor,
+                    "err_sum_rel": sum_rel,
+                    "code_share": shares, "w4_far_share": far,
+                    "new_shapes": [r["M"] for r in new]}
+
+
+def _site_qtensors_of(tree, prefix=""):
+    if hasattr(tree, "codes"):
+        yield prefix[:-1], tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _site_qtensors_of(v, f"{prefix}{k}.")
+
+
+def mesh_production_refusal():
+    """(c) of the mesh phase: ``--mesh production`` in one process."""
+    from repro_torch.launch import quantize as launcher
+    try:
+        launcher.main(launcher_argv(0) + ["--mesh", "production"])
+    except SystemExit as e:
+        msg = str(e.code)
+        if "256 ranks" not in msg or "world size of 1" not in msg:
+            fail(f"mesh: --mesh production exited without the world-size "
+                 f"message: {msg}")
+        log(f"mesh: --mesh production refused: {msg[:160]}...")
+        return msg
+    fail("mesh: --mesh production did not exit in a world of one")
+
+
+def mesh_phase(torch, np, rows):
+    """Data-parallel calibration on the card (the docstring's phase 13).
+    Returns rank 0's launch counts and the phase's numbers."""
+    world1 = mesh_world1_check(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, ranks = mesh_launcher_check(torch, np, rows)
+    return counts, {"world1": world1, "launcher": ranks,
+                    "production": mesh_production_refusal()}
+
+
 def _timed_row(rows, name):
     t = TIMED[name]
     for r in rows:
@@ -3886,6 +4326,8 @@ def _timed_row(rows, name):
 
 def main() -> int:
     import torch
+    if len(sys.argv) > 2 and sys.argv[1] == "--mesh-child":
+        return mesh_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -3946,6 +4388,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    mesh_counts, mesh = mesh_phase(torch, np, rows)
+    log(f"mesh phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     olmo_counts, olmo = olmo_phase(torch, np)
     log(f"olmo-1b launcher phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
@@ -4001,6 +4449,7 @@ def main() -> int:
         by_path = {"smollm-135m": counts[name],
                    "smollm-135m-trained": trained_counts[name],
                    "smollm-135m-auto-bits": auto_counts[name],
+                   "smollm-135m-mesh": mesh_counts[name],
                    "olmo-1b-trained": olmo_counts[name],
                    "llama4-scout-17b-a16e": moe_counts[name],
                    "qwen2.5-14b": qwen_counts[name],
@@ -4035,6 +4484,7 @@ def main() -> int:
         {"device": smi, "kernels": summary, "rows": rows, "path": path,
          "recon_graphs": recon_graphs, "trained_path": trained,
          "preemption": preemption, "auto_bits_path": auto_bits,
+         "mesh_path": mesh,
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
          "deepseek_path": ds_path, "whisper_path": wh_path,
          "mamba_path": mb_path, "recurrentgemma_path": rg_path,

@@ -35,7 +35,8 @@ def auto_allocate(blocks, recipe, x0, budget: Budget, *,
     """Probe every site, solve the budget, return the report (rules +
     accounting). The caller applies ``report.rules()`` to its recipe and
     passes ``report.meta()`` to ``quantize_blocks`` for resume validation.
-    ``mesh`` is not ported (ROADMAP Queue 1 item 11)."""
+    ``mesh``: a ``DeviceMesh`` for data-parallel probing; every rank passes
+    the whole ``x0`` and gets the same report."""
     probe = probe_blocks(blocks, recipe, x0, bits=bits, mesh=mesh)
     alloc = solve_allocation(probe, budget, objective=objective,
                              solver=solver)

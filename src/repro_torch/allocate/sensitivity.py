@@ -38,6 +38,14 @@ runs it call by call on a card too, only as the eager side of a
 comparison. A failed capture or replay raises. The probe cache lives
 inside ``reconstruct.engine_scope()`` and is released with it.
 
+Under a data-parallel ``mesh`` (``launch.mesh``) every rank passes the
+whole calibration stream and probes its rows of it (``reconstruct``'s
+rows, replicated when the ranks do not divide them): the probe MSE is a
+sum over the global element count, all-reduced after each replay (the
+captured body holds no collective), and the fisher proxy's per-feature
+second moments are all-reduced once per block, so every rank gets the
+same scores and the same allocation. The bodies stay one per probe key.
+
 RTN is used as the probe quantizer regardless of the recipe's method: every
 learnable method starts from the RTN grid, so RTN error ordering is the
 method-agnostic sensitivity signal (and it needs no optimization).
@@ -152,7 +160,7 @@ class _Probe:
     the exemplar's name mapping (as ``reconstruct._Engine`` does)."""
 
     def __init__(self, block: rec.BlockHandle, cfgs_c: Dict[str, QuantConfig],
-                 mapping: Dict[str, str], wstates_c, x, y_fp):
+                 mapping: Dict[str, str], wstates_c, x, y_fp, rows):
         dev = x.device
 
         def empty(t):
@@ -167,6 +175,9 @@ class _Probe:
                                 device=dev)
         self.onehot = torch.eye(len(self.slot), dtype=torch.bool, device=dev)
         self.mse = torch.zeros((), dtype=torch.float32, device=dev)
+        # the squared errors of every rank's rows
+        self.rows = rows
+        self.count = rows.n * y_fp[0].numel() if rows.split else y_fp.numel()
         self.graph = None
 
     @torch.no_grad()
@@ -174,7 +185,8 @@ class _Probe:
         gates = {c: self.gate[i] for c, i in self.slot.items()}
         ctx = _ProbeCtx(self.cfgs, self.wstates, gates)
         y = self.apply(self.params, self.x, rec._RenameCtx(ctx, self.mapping))
-        self.mse.copy_(torch.mean(torch.square(y.float() - self.y_fp.float())))
+        self.mse.copy_(torch.sum(torch.square(y.float() - self.y_fp.float()))
+                       / self.count)
 
     @torch.no_grad()
     def load(self, params, wstates_c, x, y_fp) -> None:
@@ -212,7 +224,7 @@ class _Probe:
             self.graph.replay()
         else:
             self.body()
-        return float(self.mse)
+        return float(self.rows.sum(self.mse))
 
 
 def _site_bytes(w: torch.Tensor, state: Dict[str, torch.Tensor], bits: int,
@@ -242,17 +254,23 @@ def _fisher_proxy(dw: torch.Tensor, m2: Optional[torch.Tensor]) -> float:
 
 @torch.no_grad()
 def _second_moments(block: rec.BlockHandle, recipe: QuantRecipe,
-                    x: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    x: torch.Tensor, rows) -> Dict[str, torch.Tensor]:
     """One capture pass: each exercised site's per-input-feature E[x^2]
-    over its first recorded input."""
+    over its first recorded input (over every rank's rows, in one
+    all-reduce, under a split mesh)."""
     cap = QuantCtx(mode="capture", recipe=recipe)
     block.apply(block.params, x, cap)
     m2 = {}
+    scale = rows.dp.size if rows.split else 1
     for rn in block.sites:
         xs = cap.records.get(rn)
         if xs:
             x32 = xs[0].float()
-            m2[rn] = torch.mean(x32 * x32, dim=tuple(range(x32.dim() - 1)))
+            count = x32.numel() // x32.shape[-1] * scale
+            m2[rn] = torch.sum(x32 * x32, dim=tuple(range(x32.dim() - 1))) \
+                / count
+    if rows.split and m2:
+        m2 = dict(zip(m2, rows.dp.all_reduce(list(m2.values()))))
     return m2
 
 
@@ -267,13 +285,11 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
     symmetry, observer) — only ``bits`` is swept. ``graphs``: None replays
     each probe's CUDA graph on a card and runs the body directly on the
     CPU; False runs it directly on a card too (comparisons only); True on
-    the CPU raises. ``mesh`` is not ported (ROADMAP Queue 1 item 11).
+    the CPU raises. ``mesh``: a ``DeviceMesh``; every rank passes the whole
+    ``x0`` and gets every score (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "probe_blocks(mesh=...): data parallelism over a mesh is not "
-            "ported yet (ROADMAP Queue 1 item 11)")
-    graphed = rec._use_graphs(graphs, x0.device)
+    graphed = rec._use_graphs(graphs, x0.device)  # no collective in a body
+    rows = rec._Rows.of(rec._data_parallel(mesh), x0.shape[0])
     stats0 = dataclasses.replace(rec.engine_stats())
     sw = Stopwatch()
     steps = 0
@@ -283,7 +299,7 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
 
     with rec.engine_scope():
         try:
-            x = x0
+            x = rows.take(x0)
             for bi, block in enumerate(blocks):
                 cascade = float(len(blocks) - bi)
                 with TELEMETRY.span("alloc.teacher", block=block.name) as tsp:
@@ -292,7 +308,7 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
                     tsp.block_on(y_fp)
                 plans = rec.site_plans(block, recipe)
                 canon = rec._canon_names(block)
-                m2 = _second_moments(block, recipe, x)
+                m2 = _second_moments(block, recipe, x, rows)
 
                 for b in bits:
                     cfgs_c = {canon[rn]: dataclasses.replace(plans[rn].weight,
@@ -310,10 +326,12 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
 
                     pkey = (_probe_key(block, plans, canon, b, recipe),
                             (x.device, rec._sig(block.params),
-                             rec._sig(wstates), rec._sig(x), rec._sig(y_fp)))
+                             rec._sig(wstates), rec._sig(x), rec._sig(y_fp)),
+                            rows)
                     probe = probe_cache.get(pkey)
                     if probe is None:
-                        probe = _Probe(block, cfgs_c, canon, wstates, x, y_fp)
+                        probe = _Probe(block, cfgs_c, canon, wstates, x, y_fp,
+                                       rows)
                         rec.count_probe_compile()
                         probe_cache[pkey] = probe
                     probe.load(block.params, wstates, x, y_fp)

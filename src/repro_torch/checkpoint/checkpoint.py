@@ -24,7 +24,11 @@ killed run resumes at the first unfinished block; it records each finished
 block's per-site plans and the bit-allocation digest, and a resume under
 other rules or another allocation fails loudly ("PTQ resume mismatch").
 ``save_allocation``/``load_allocation`` keep the allocation itself beside
-it (``<dir>/allocation.json``, the reference's JSON document). Reading a
+it (``<dir>/allocation.json``, the reference's JSON document). Under a
+data-parallel mesh each rank holds its rows of the streams: ``save``
+gathers them, global rank 0 writes the checkpoint of the whole streams and
+every rank waits for it at a barrier; ``load`` slices each rank's rows
+again, so a checkpoint does not depend on the world size. Reading a
 JAX export is outside the port (it needs jax): load it with
 ``repro.checkpoint.load_pytree`` and carry it across with
 ``repro_torch.bridge``.
@@ -280,10 +284,20 @@ class PTQCheckpointer:
 
     def save(self, next_block: int, finalized, astates, reports, x_fp, x_q,
              plans: Optional[list] = None,
-             allocation: Optional[dict] = None) -> None:
+             allocation: Optional[dict] = None, rows=None) -> None:
         """``plans``: per finished block, {site: SitePlan.summary()};
         ``allocation``: summary of the automatic bit allocation that emitted
-        the recipe's rules (None for hand-written rules)."""
+        the recipe's rules (None for hand-written rules). ``rows``: under a
+        mesh, this rank's rows of the streams (``core.reconstruct._Rows``);
+        every rank calls ``save``, rank 0 writes."""
+        if rows is not None and rows.dp is not None:
+            from repro_torch.launch.mesh import barrier, is_writer
+            x_fp, x_q = rows.gather(x_fp), rows.gather(x_q)
+            if is_writer():
+                self.save(next_block, finalized, astates, reports, x_fp, x_q,
+                          plans, allocation)
+            barrier()
+            return
         tree = {"finalized": finalized, "astates": astates,
                 "x_fp": x_fp, "x_q": x_q}
         meta = {"next_block": next_block,
@@ -304,9 +318,10 @@ class PTQCheckpointer:
             return json.load(f)["meta"]
 
     def load(self, blocks, recipe, allocation: Optional[dict] = None,
-             device: DeviceLike = None):
+             device: DeviceLike = None, rows=None):
         """None without a checkpoint, else (next_block, finalized, astates,
-        reports, x_fp, x_q) on ``device``. Raises ``ValueError("PTQ resume
+        reports, x_fp, x_q) on ``device``; with ``rows`` (see ``save``)
+        the streams are this rank's rows. Raises ``ValueError("PTQ resume
         mismatch ...")`` when the allocation digest or a finished block's
         per-site plans differ from this run's."""
         if not exists(self.path):
@@ -335,5 +350,8 @@ class PTQCheckpointer:
                     f"resolves to {now}; restart with matching rules "
                     "or a fresh checkpoint dir")
         reports = [BlockReport.from_json(r) for r in meta["reports"]]
+        x_fp, x_q = tree["x_fp"], tree["x_q"]
+        if rows is not None:
+            x_fp, x_q = rows.take(x_fp), rows.take(x_q)
         return (meta["next_block"], tree["finalized"], tree["astates"],
-                reports, tree["x_fp"], tree["x_q"])
+                reports, x_fp, x_q)

@@ -5,18 +5,51 @@ probability that an element keeps its full-precision value.
 
 The draw comes from the caller: a ``torch.Generator`` on the activation's
 device, or a boolean mask (True keeps fp) that was drawn elsewhere, e.g.
-in JAX by a parity test.
+in JAX by a parity test. A data-parallel rank wraps either in ``Rows``:
+the draw is made at the global batch's shape and sliced to the rank's
+positions, so every rank sees the masks of the single-process run.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import zlib
-from typing import Dict, Union
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
-MaskOrGenerator = Union[torch.Generator, torch.Tensor, np.ndarray]
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """``source`` (a generator or a mask) drawn for a batch of ``total``
+    positions, of which the activation holds positions [lo, hi): its leading
+    axis holds (hi - lo) positions' rows, so the draw is made with that axis
+    scaled to ``total`` positions and sliced."""
+    source: Any
+    lo: int
+    hi: int
+    total: int
+
+    def mask(self, shape, drop_prob: float, device) -> torch.Tensor:
+        rows, n = shape[0], self.hi - self.lo
+        if rows * self.total % n:
+            raise ValueError(f"an activation of {rows} rows does not split "
+                             f"into {n} of {self.total} positions")
+        per = rows * self.total // n
+        full = (per,) + tuple(shape[1:])
+        keep = _keep(self.source, full, drop_prob, device)
+        at = rows * self.lo // n
+        return keep[at:at + rows]
+
+
+MaskOrGenerator = Union[torch.Generator, torch.Tensor, np.ndarray, Rows]
+
+
+def _keep(src, shape, drop_prob: float, device) -> torch.Tensor:
+    if isinstance(src, torch.Generator):
+        return torch.rand(shape, generator=src, device=device) < drop_prob
+    return torch.as_tensor(src, device=device).to(torch.bool)
 
 
 def qdrop(x_fp: torch.Tensor, x_q: torch.Tensor, drop_prob: float,
@@ -27,12 +60,10 @@ def qdrop(x_fp: torch.Tensor, x_q: torch.Tensor, drop_prob: float,
         return x_q
     if drop_prob >= 1.0:
         return x_fp
-    if isinstance(mask_or_generator, torch.Generator):
-        keep_fp = torch.rand(x_fp.shape, generator=mask_or_generator,
-                             device=x_fp.device) < drop_prob
+    if isinstance(mask_or_generator, Rows):
+        keep_fp = mask_or_generator.mask(x_fp.shape, drop_prob, x_fp.device)
     else:
-        keep_fp = torch.as_tensor(mask_or_generator,
-                                  device=x_fp.device).to(torch.bool)
+        keep_fp = _keep(mask_or_generator, x_fp.shape, drop_prob, x_fp.device)
     return torch.where(keep_fp, x_fp, x_q)
 
 

@@ -74,9 +74,45 @@ port does not copy.) With telemetry enabled each block opens a
 The bit allocator's sensitivity probe (``repro_torch.allocate``) takes
 its teacher from ``probe_teacher`` and counts the probe bodies it builds
 with ``count_probe_compile``; it keeps its probe cache inside
-``engine_scope``. Not ported here (see ROADMAP): data parallelism over a
-mesh (``mesh=``, Queue 1 item 11). The teacher, the student pass and
-``recon_error`` run eagerly once per block.
+``engine_scope``. The teacher, the student pass and ``recon_error`` run
+eagerly once per block.
+
+**Data parallelism** (``mesh=``, a ``DeviceMesh`` of ``launch.mesh``; one
+process per rank, every rank making the same calls). The caller passes the
+whole streams on every rank; rank r keeps rows [r n/dp, (r+1) n/dp) of
+``x_q``, ``y_fp`` and ``sample_weight`` (dp: the ranks along the mesh's
+data axes), or all n rows on every rank when dp does not divide n (the
+reference's ``stream_spec`` replication: then nothing is reduced). The
+rounding, Adam and LSQ states and the minibatch schedule are replicated:
+every rank draws the same global ``idx`` from the same seed. Where the
+reference's GSPMD inserts a collective, the port issues one over the data
+axes' process group:
+
+- a minibatch is assembled with its global shape on every rank (rows
+  ``index_select``-ed from the local shard, the rows of other ranks zeroed,
+  summed over the group as bytes: exact), and rank r computes positions
+  [r bs/dp, (r+1) bs/dp) of it; the full batch computes the local rows;
+- the loss is the local sum of squared errors over the global element
+  count (weighted: the local weighted sum over the global weight sum), so
+  the gradients are ``all_reduce(SUM)``-ed, with the loss and MSE, in one
+  collective per step; AdaRound's regularizer (a function of the
+  replicated states) is counted by data rank 0 alone;
+- QDrop masks are drawn at the global batch's shape from each site's
+  generator and sliced to the rank's positions (``qdrop.Rows``), so the
+  draws are those of the single-process run;
+- the LSQ ranges are all-reduced with MIN and MAX; ``recon_error`` and the
+  curves are global means.
+
+Every rank applies Adam to the same reduced gradient, so the states stay
+identical on every rank, and a run equals the single-process one up to
+float summation order (at world size 1, bit for bit). The engine key holds
+the mesh. On an NCCL group the captured step holds the collectives (the
+warm-up builds the communicator before capture); a gloo group cannot be
+captured, so its engine runs the body call by call, says so once, and
+reports ``engine="eager"``; ``graphs=True`` there raises. Checkpoints
+under a mesh hold the gathered streams, written by global rank 0 while
+every rank waits at a barrier; a resume slices them again, so a run killed
+at one world size resumes at another and ends where an unbroken run ends.
 """
 from __future__ import annotations
 
@@ -97,7 +133,7 @@ from repro_torch.core.quant_config import QuantRecipe, SitePlan
 from repro_torch.obs import compile_events, profiler
 from repro_torch.obs.telemetry import TELEMETRY, Stopwatch, block_on
 from repro_torch.optim.adam import (AdamConfig, adam_init, adam_update_,
-                                    bias_correction_tables)
+                                    bias_correction_tables, tree_unflatten)
 
 DEFAULT_CHUNK = 100  # steps between host syncs (the reference's scan chunk)
 WARMUP_STEPS = 3     # steps run on a side stream before a capture
@@ -264,16 +300,27 @@ def init_wstates(block: BlockHandle, recipe: QuantRecipe) -> Dict[str, Any]:
 
 @torch.no_grad()
 def init_astates(block: BlockHandle, recipe: QuantRecipe, x_q: torch.Tensor,
-                 prev: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                 prev: Optional[Dict[str, Any]] = None,
+                 rows: Optional["_Rows"] = None) -> Dict[str, Any]:
     """LSQ init from observed ranges on the student stream (one calib pass,
-    skipped when no site of the block quantizes activations)."""
+    skipped when no site of the block quantizes activations). ``rows``:
+    ``x_q`` holds this rank's rows of the stream; the ranges are then
+    reduced over the ranks (MIN and MAX), so every rank starts from the
+    global range."""
     states = dict(prev or {})
     plans = site_plans(block, recipe)
     if all(p.act is None for p in plans.values()):
         return states
     ctx = QuantCtx(mode="calib", recipe=recipe)
     block.apply(block.params, x_q, ctx)
-    for name, (lo, hi) in ctx.records.items():
+    records = ctx.records
+    if rows is not None and rows.split and records:
+        ext = torch.tensor([v for lo, hi in records.values() for v in (lo, -hi)],
+                           dtype=torch.float32, device=x_q.device)
+        ext = rows.dp.all_reduce([ext], op="min")[0].tolist()
+        records = {k: (ext[2 * i], -ext[2 * i + 1])
+                   for i, k in enumerate(records)}
+    for name, (lo, hi) in records.items():
         plan = plans.get(name) or recipe.resolve(name)
         if plan.act is None:
             continue
@@ -286,6 +333,54 @@ def _trainable_mask(wstates, astates, plans: Dict[str, SitePlan]):
     wmask = {k: plans[k].method.trainable(v) for k, v in wstates.items()}
     amask = {k: lsq.trainable(v) for k, v in astates.items()}
     return wmask, amask
+
+
+# ------------------------------------------------------- data parallelism
+def _data_parallel(mesh):
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import DataParallel
+    return DataParallel.of(mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rows:
+    """This rank's rows [lo, hi) of a stream of ``n`` rows. ``dp`` is the
+    mesh's ``launch.mesh.DataParallel`` (None without a mesh); ``split``
+    whether the rows are divided over its ranks. Unsplit (no mesh, or dp
+    does not divide n) every rank holds all n rows and nothing is
+    reduced or gathered."""
+    dp: Any
+    n: int
+    lo: int
+    hi: int
+    split: bool
+
+    @classmethod
+    def of(cls, dp, n: int) -> "_Rows":
+        if dp is None or n % dp.size:
+            return cls(dp, n, 0, n, False)
+        lo, hi = dp.rows(n)
+        return cls(dp, n, lo, hi, True)
+
+    def per_rank(self, n_local: int) -> "_Rows":
+        """The rows of a stream derived row by row from this one (a site's
+        input in layer-wise mode), ``n_local`` of them on this rank."""
+        if not self.split:
+            return _Rows(self.dp, n_local, 0, n_local, False)
+        r, size = self.dp.rank, self.dp.size
+        return _Rows(self.dp, n_local * size, r * n_local, (r + 1) * n_local,
+                     True)
+
+    def take(self, t):
+        return t if t is None or not self.split else t[self.lo:self.hi]
+
+    def gather(self, t):
+        return t if not self.split else self.dp.gather_rows(t, self.n)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t if not self.split else self.dp.all_reduce([t])[0]
+
 
 
 # ------------------------------------------------- canonical names, trees
@@ -383,7 +478,8 @@ class _Engine:
 
     def __init__(self, block: BlockHandle, recipe: QuantRecipe,
                  plans_c: Dict[str, SitePlan], mapping: Dict[str, str],
-                 c_w, c_a, x_q, y_fp, sample_weight, idx):
+                 c_w, c_a, x_q, y_fp, sample_weight, idx,
+                 rows: _Rows, sw_all):
         dev = x_q.device
 
         def empty(t):
@@ -400,6 +496,21 @@ class _Engine:
         self.x_q, self.y_fp = empty(x_q), empty(y_fp)
         self.sw = None if sample_weight is None else empty(sample_weight)
         self.idx = None if idx is None else torch.empty_like(idx)
+        # the data-parallel layout (module docstring): the step's batch has
+        # ``batch`` rows, of which this rank computes ``pos``; ``count``
+        # squared errors in all
+        self.rows = rows
+        batch = rows.n if idx is None else idx.shape[1]
+        self.gather = rows.split and idx is not None
+        self.reduce = rows.split and batch % rows.dp.size == 0
+        r, size = (rows.dp.rank, rows.dp.size) if self.reduce else (0, 1)
+        self.batch = batch
+        self.pos = (r * batch // size, (r + 1) * batch // size)
+        self.count = batch * y_fp[0].numel()
+        self.owns_reg = r == 0  # AdaRound's regularizer counted once
+        # the global sample weights of a full-batch step (its weight sum)
+        self.sw_all = (empty(sw_all) if rows.split and idx is None
+                       and sw_all is not None else self.sw)
         self.step_t = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.losses = torch.zeros((recipe.iters,), dtype=torch.float32,
                                   device=dev)
@@ -416,17 +527,53 @@ class _Engine:
         self.graph = None
 
     # -------------------------------------------------------------- body
+    def draw(self, c: str, mask=None) -> qdrop.MaskOrGenerator:
+        """Canonical site ``c``'s QDrop draw: its generator, or ``mask``
+        when given; on a data-parallel step made at the global batch's
+        shape and sliced to this rank's positions."""
+        src = self.streams[c] if mask is None else mask
+        if not self.reduce:
+            return src
+        return qdrop.Rows(src, self.pos[0], self.pos[1], self.batch)
+
+    def _minibatch(self, ix: torch.Tensor):
+        """Rows ``ix`` of x_q, y_fp and the sample weights. Under a split
+        mesh each rank holds rows [lo, hi) only: it selects its own, zeroes
+        the others and the group sums the bytes, which gives every rank the
+        whole minibatch bit for bit."""
+        bufs = [t for t in (self.x_q, self.y_fp, self.sw) if t is not None]
+        if not self.gather:
+            parts = [t.index_select(0, ix) for t in bufs]
+        else:
+            lo, hi = self.rows.lo, self.rows.hi
+            own = (ix >= lo) & (ix < hi)
+            li = torch.clamp(ix - lo, 0, hi - lo - 1)
+            parts = []
+            for t in bufs:
+                p = t.index_select(0, li)
+                keep = own.reshape((-1,) + (1,) * (p.dim() - 1))
+                parts.append(torch.where(keep, p, torch.zeros(
+                    (), dtype=p.dtype, device=p.device)))
+            parts = self.rows.dp.assemble(parts)
+        return parts[0], parts[1], (parts[2] if self.sw is not None else None)
+
     def step(self, drop: Callable[[str], qdrop.MaskOrGenerator]) -> None:
         """One Adam step over the static buffers; ``drop`` maps a canonical
         site to its QDrop draw. The MSE is a weighted mean over the batch
-        when sample weights are given, the plain mean otherwise."""
+        when sample weights are given, the plain mean otherwise (a sum over
+        the global element count: the data-parallel ranks' sums add up)."""
         recipe, plans, step = self.recipe, self.plans, self.step_t
         if self.idx is None:
             xb, yb, wb = self.x_q, self.y_fp, self.sw
+            w_all = self.sw_all
         else:
             ix = self.idx.index_select(0, step).reshape(-1)
-            xb, yb = self.x_q.index_select(0, ix), self.y_fp.index_select(0, ix)
-            wb = None if self.sw is None else self.sw.index_select(0, ix)
+            xb, yb, wb = self._minibatch(ix)
+            w_all = wb
+            if self.reduce:
+                lo, hi = self.pos
+                xb, yb = xb[lo:hi], yb[lo:hi]
+                wb = None if wb is None else wb[lo:hi]
         ws, wl = _grad_leaves(self.ws, self.wmask, "w")
         as_, al = _grad_leaves(self.as_, self.amask, "a")
         leaves = wl + al
@@ -436,37 +583,47 @@ class _Engine:
             y = self.apply(self.params, xb, _RenameCtx(ctx, self.mapping))
             se = torch.square(y.float() - yb.float())
             if wb is None:
-                mse = torch.mean(se)
+                mse = torch.sum(se) / self.count
             else:
                 per = torch.mean(se.reshape(se.shape[0], -1), dim=1)
-                w = wb.float()
-                mse = torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
-            reg = torch.zeros((), dtype=torch.float32, device=se.device)
-            for name, st in ws.items():
-                plan = plans[name]
-                reg = reg + plan.method.loss_extra(st, plan.weight, step,
-                                                   recipe)
-            loss = mse + reg
+                mse = torch.sum(per * wb.float()) / torch.clamp(
+                    torch.sum(w_all.float()), min=1e-9)
+            loss = mse
+            if self.owns_reg:
+                reg = torch.zeros((), dtype=torch.float32, device=se.device)
+                for name, st in ws.items():
+                    plan = plans[name]
+                    reg = reg + plan.method.loss_extra(st, plan.weight, step,
+                                                       recipe)
+                loss = mse + reg
             grads = (torch.autograd.grad(loss, [t for *_, t in leaves],
                                          allow_unused=True)
                      if leaves and loss.requires_grad else [None] * len(leaves))
         got = {(tag, k, n): g for (tag, k, n, _), g in zip(leaves, grads)
                if g is not None}
         with torch.no_grad():
+            wg = self._grads(self.ws, got, "w")
+            ag = self._grads(self.as_, got, "a")
+            loss, mse = loss.detach().reshape(1), mse.detach().reshape(1)
+            if self.reduce:  # one collective: every gradient, loss and MSE
+                flat = _tensors(wg) + _tensors(ag)
+                red = self.rows.dp.all_reduce(flat + [loss, mse])
+                wg = tree_unflatten(wg, red[:len(_tensors(wg))])
+                ag = tree_unflatten(ag, red[len(_tensors(wg)):len(flat)])
+                loss, mse = red[-2], red[-1]
             c1, c2 = (t.index_select(0, step).reshape(()) for t in self.w_corr)
-            adam_update_(self._grads(self.ws, got, "w"), self.wmu, self.ws,
-                         _W_BASE_CFG, c1, c2, lr_scale=self.w_lr)
+            adam_update_(wg, self.wmu, self.ws, _W_BASE_CFG, c1, c2,
+                         lr_scale=self.w_lr)
             for k, st in self.ws.items():
                 _write(st, plans[k].method.project(st))
             if self.as_:
                 c1, c2 = (t.index_select(0, step).reshape(())
                           for t in self.a_corr)
-                adam_update_(self._grads(self.as_, got, "a"), self.amu,
-                             self.as_, self.a_cfg, c1, c2)
+                adam_update_(ag, self.amu, self.as_, self.a_cfg, c1, c2)
                 for st in self.as_.values():
                     _write(st, lsq.project(st))
-            self.losses.index_copy_(0, step, loss.detach().reshape(1))
-            self.mses.index_copy_(0, step, mse.detach().reshape(1))
+            self.losses.index_copy_(0, step, loss)
+            self.mses.index_copy_(0, step, mse)
             step.add_(1)
 
     def _grads(self, states, got, tag):
@@ -487,7 +644,7 @@ class _Engine:
     # ----------------------------------------------------------- driving
     @torch.no_grad()
     def load(self, params, c_w, c_a, x_q, y_fp, sample_weight, idx,
-             seeds: Dict[str, int]) -> None:
+             seeds: Dict[str, int], sw_all=None) -> None:
         """Copy one block's params, initial states and streams into the
         buffers; zero the moments, the counter and the curves; seed the
         QDrop generators (canonical site -> seed)."""
@@ -500,6 +657,8 @@ class _Engine:
         self.y_fp.copy_(y_fp)
         if sample_weight is not None:
             self.sw.copy_(sample_weight)
+            if self.sw_all is not self.sw:
+                self.sw_all.copy_(sw_all)
         if idx is not None:
             self.idx.copy_(idx)
         self.step_t.zero_()
@@ -518,7 +677,7 @@ class _Engine:
         dev = self.x_q.device
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        drop = self.streams.__getitem__
+        drop = self.draw
         with ops.set_aside(), torch.cuda.stream(stream):
             for _ in range(WARMUP_STEPS):
                 self.step_t.zero_()  # every warm-up step reads row 0
@@ -529,7 +688,11 @@ class _Engine:
         for gen in self.streams.values():
             graph.register_generator_state(gen)
         sw = Stopwatch()
-        with ops.set_aside(), torch.cuda.graph(graph, stream=stream):
+        # collectives in the step: NCCL's watchdog thread polls its events
+        # while the capture runs, which a global capture would refuse
+        mode = "thread_local" if self.rows.split else "global"
+        with ops.set_aside(), torch.cuda.graph(graph, stream=stream,
+                                               capture_error_mode=mode):
             self.step(drop)
         dur = sw.elapsed_s()
         self.graph = graph
@@ -553,11 +716,11 @@ class _Engine:
                     profiler.annotate("recon.chunk", n_chunk):
                 for t in range(it, it + n):
                     if masks is not None:
-                        self.step(lambda c, m=masks[t]: m[inv[c]])
+                        self.step(lambda c, m=masks[t]: self.draw(c, m[inv[c]]))
                     elif graphed:
                         self.graph.replay()
                     else:
-                        self.step(self.streams.__getitem__)
+                        self.step(self.draw)
                 sp.block_on(self.mses)  # the span records its sync
                 block_on(self.mses)  # and the annotation holds the device's
             it += n
@@ -574,7 +737,8 @@ _SCOPE_STACK: List[set] = []
 
 def _get_engine(block: BlockHandle, recipe: QuantRecipe,
                 plans: Dict[str, SitePlan], canon: Dict[str, str],
-                c_w, c_a, x_q, y_fp, sample_weight, idx) -> _Engine:
+                c_w, c_a, x_q, y_fp, sample_weight, idx,
+                rows: _Rows, sw_all) -> _Engine:
     akey = (block.apply_key if block.apply_key is not None
             else ("~obj", id(block.apply)))
     sites = tuple(sorted(
@@ -583,14 +747,17 @@ def _get_engine(block: BlockHandle, recipe: QuantRecipe,
     # what the static buffers (and a captured graph) fix
     bufs = (x_q.device, _sig(block.params), _sig(c_w), _sig(c_a),
             _sig(x_q), _sig(y_fp), _sig(sample_weight), _sig(idx))
-    key = (akey, sites, recipe, bufs)
+    # the mesh (its DataParallel: shape, names and group) and this rank's
+    # rows fix the collectives and the slices a graph holds
+    key = (akey, sites, recipe, bufs, rows)
     eng = _ENGINE_CACHE.get(key)
     if eng is not None:
         _STATS.engine_hits += 1
         _ENGINE_CACHE.move_to_end(key)
         return eng
     eng = _Engine(block, recipe, {canon[rn]: plans[rn] for rn in block.sites},
-                  canon, c_w, c_a, x_q, y_fp, sample_weight, idx)
+                  canon, c_w, c_a, x_q, y_fp, sample_weight, idx, rows,
+                  sw_all)
     _STATS.engine_builds += 1
     _ENGINE_CACHE[key] = eng
     if _SCOPE_STACK:
@@ -602,12 +769,17 @@ def _get_engine(block: BlockHandle, recipe: QuantRecipe,
 
 @torch.no_grad()
 def recon_error(block: BlockHandle, recipe: QuantRecipe, wstates, astates,
-                x_q, y_fp, plans: Optional[Dict[str, SitePlan]] = None) -> float:
-    """Mean squared block-output error of the recon forward, QDrop off."""
+                x_q, y_fp, plans: Optional[Dict[str, SitePlan]] = None,
+                rows: Optional[_Rows] = None) -> float:
+    """Mean squared block-output error of the recon forward, QDrop off
+    (over every rank's rows when ``rows`` are split over a mesh)."""
     ctx = QuantCtx(mode="recon", recipe=recipe, wstates=wstates,
                    astates=astates, drop_enabled=False, plans=plans)
     y = block.apply(block.params, x_q, ctx)
-    return float(torch.mean(torch.square(y.float() - y_fp.float())))
+    se = torch.sum(torch.square(y.float() - y_fp.float()))
+    if rows is None or not rows.split:
+        return float(se / y_fp.numel())
+    return float(rows.sum(se / (rows.n * y_fp[0].numel())))
 
 
 # ------------------------------------------------------------------- seeds
@@ -632,33 +804,52 @@ def _batch_schedule(gen: torch.Generator, iters: int, n: int, bs: int):
                                     device=gen.device), dim=1)[:, :bs]
 
 
-def _use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
+def _use_graphs(graphs: Optional[bool], device: torch.device,
+                dp=None) -> bool:
     """``graphs`` resolved against the run's device: None captures on a
-    card; True on the CPU raises, as ``ServeEngine`` does."""
+    card; True on the CPU raises, as ``ServeEngine`` does. Under a mesh
+    whose group cannot be captured (gloo) None runs the body call by call
+    and says so once; True raises."""
     on_card = device.type == "cuda"
     if graphs and not on_card:
         raise ValueError(f"graphs=True needs a CUDA device, got {device}; on "
                          "the CPU the step runs directly (graphs=None)")
+    if on_card and dp is not None and not dp.capturable and graphs is not False:
+        if graphs:
+            raise ValueError(
+                f"graphs=True under a {dp.backend} group: its collectives run "
+                "on the host and cannot be captured (graphs=None runs the "
+                "step call by call)")
+        if not getattr(dp, "eager_noted", False):
+            dp.eager_noted = True
+            print(f"recon: the mesh's {dp.backend} group cannot be captured "
+                  "in a CUDA graph; the engine runs the step call by call "
+                  '(engine="eager")', flush=True)
+        return False
     return on_card if graphs is None else bool(graphs)
 
 
 def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
          wstates, astates_all, x_q, y_fp, seed: int, sample_weight=None,
          schedule: Optional[Schedule] = None, chunk: int = DEFAULT_CHUNK,
-         graphs: Optional[bool] = None):
+         graphs: Optional[bool] = None, rows: Optional[_Rows] = None,
+         sw_all=None):
     """The optimization loop of one block: returns (wstates, astates_all,
-    err0, err1, loop_seconds, loss_curve, mse_curve, engine)."""
+    err0, err1, loop_seconds, loss_curve, mse_curve, engine). ``x_q``,
+    ``y_fp`` and ``sample_weight`` hold this rank's ``rows``; ``sw_all``
+    the sample weights of every row."""
     dev = x_q.device
-    graphed = _use_graphs(graphs, dev)
+    rows = rows or _Rows.of(None, x_q.shape[0])
+    graphed = _use_graphs(graphs, dev, rows.dp)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     a_in = {r: astates_all[r] for r in block.sites if r in astates_all}
-    err0 = recon_error(block, recipe, wstates, a_in, x_q, y_fp, plans)
+    err0 = recon_error(block, recipe, wstates, a_in, x_q, y_fp, plans, rows)
     if not recipe.iters:  # nothing to learn: no engine, no draws
         return (wstates, dict(astates_all), err0, err0, 0.0, _empty_curve(),
                 _empty_curve(), "eager")
 
-    n = x_q.shape[0]
+    n = rows.n if rows.split else x_q.shape[0]
     bs = min(recipe.batch_size, n)
     masks = None
     if schedule is not None:
@@ -676,10 +867,10 @@ def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
     c_w = {canon[r]: v for r, v in wstates.items()}
     c_a = {canon[r]: v for r, v in a_in.items()}
     eng = _get_engine(block, recipe, plans, canon, c_w, c_a, x_q, y_fp,
-                      sample_weight, idx)
+                      sample_weight, idx, rows, sw_all)
     seeds = {c: qdrop.site_seed(seed, inv[c]) for c in eng.streams}
     reload = partial(eng.load, block.params, c_w, c_a, x_q, y_fp,
-                     sample_weight, idx, seeds)
+                     sample_weight, idx, seeds, sw_all)
     reload()
     if graphed and eng.graph is None:
         eng.capture(reload)
@@ -693,7 +884,7 @@ def _run(block: BlockHandle, recipe: QuantRecipe, plans: Dict[str, SitePlan],
                 for c, st in states.items()}
 
     w_out, a_new = out(eng.ws), out(eng.as_)
-    err1 = recon_error(block, recipe, w_out, a_new, x_q, y_fp, plans)
+    err1 = recon_error(block, recipe, w_out, a_new, x_q, y_fp, plans, rows)
     a_out = dict(astates_all)
     a_out.update(a_new)
     return (w_out, a_out, err0, err1, loop_s, curves[0], curves[1],
@@ -706,7 +897,7 @@ def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
                       sample_weight: Optional[torch.Tensor] = None,
                       schedule: Optional[Schedule] = None,
                       chunk: int = DEFAULT_CHUNK,
-                      graphs: Optional[bool] = None,
+                      graphs: Optional[bool] = None, mesh=None,
                       ) -> Tuple[Dict[str, Any], Dict[str, Any], BlockReport]:
     """Optimize the rounding (and LSQ) states of one block; returns
     (wstates, astates, report). ``key``: a seed or a ``torch.Generator``
@@ -715,18 +906,29 @@ def reconstruct_block(block: BlockHandle, recipe: QuantRecipe,
     ``chunk``: steps between host syncs (one ``recon.chunk`` span each).
     ``graphs``: None replays the step's CUDA graph on a card and runs the
     body directly on the CPU; False runs it directly on a card too (for
-    comparisons only); True on the CPU raises."""
+    comparisons only); True on the CPU raises. ``mesh``: a ``DeviceMesh``
+    for data-parallel calibration; every rank passes the whole streams
+    (see the module docstring)."""
+    rows = _Rows.of(_data_parallel(mesh), x_q.shape[0])
+    return _reconstruct(block, recipe, rows.take(x_q), rows.take(y_fp), key,
+                        astates, rows, sample_weight, schedule, chunk, graphs)
+
+
+def _reconstruct(block, recipe, x_q, y_fp, key, astates, rows: _Rows,
+                 sw_all, schedule=None, chunk=DEFAULT_CHUNK, graphs=None):
+    """``reconstruct_block`` over this rank's ``rows`` of the streams;
+    ``sw_all``: the sample weights of every row (or None)."""
     sw = Stopwatch()
     with TELEMETRY.span("recon.block", block=block.name, iters=recipe.iters):
         plans = site_plans(block, recipe)
         with torch.no_grad():
             wstates = init_wstates(block, recipe)
         astates = astates if astates is not None else init_astates(
-            block, recipe, x_q)
+            block, recipe, x_q, rows=rows)
         (wstates, astates, err0, err1, loop_s, loss_curve, mse_curve,
          engine) = _run(block, recipe, plans, wstates, astates, x_q, y_fp,
-                        _seed(key, recipe), sample_weight, schedule, chunk,
-                        graphs)
+                        _seed(key, recipe), rows.take(sw_all), schedule,
+                        chunk, graphs, rows, sw_all)
     return wstates, astates, BlockReport(
         block.name, err0, err1, recipe.iters, sw.elapsed_s(),
         steps_per_s=recipe.iters / max(loop_s, 1e-9),
@@ -754,13 +956,10 @@ def probe_teacher(block: BlockHandle, recipe: QuantRecipe, mesh=None):
     """The teacher for sensitivity-probe passes (``repro_torch.allocate``):
     ``(params, x) -> y``, the block's fp forward under ``torch.no_grad``.
     The port runs it eagerly, so it compiles nothing and
-    ``teacher_compiles`` stays 0. ``mesh`` (a sharded probe pass) is not
-    ported (ROADMAP Queue 1 item 11)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "probe_teacher(mesh=...): data parallelism over a mesh is not "
-            "ported yet (ROADMAP Queue 1 item 11)")
-    del recipe  # the fp forward reads no plan
+    ``teacher_compiles`` stays 0. Under a ``mesh`` each rank passes its own
+    rows: the forward is row by row, so the teacher is the same function
+    (the reference keys its jitted teacher by the mesh)."""
+    del recipe, mesh  # the fp forward reads no plan and no placement
 
     @torch.no_grad()
     def teacher(params, x):
@@ -812,7 +1011,7 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
                     allocation: Optional[dict] = None,
                     sample_weight: Optional[torch.Tensor] = None,
                     chunk: int = DEFAULT_CHUNK,
-                    graphs: Optional[bool] = None,
+                    graphs: Optional[bool] = None, mesh=None,
                     ) -> Tuple[List[Any], Dict[str, Any], List[BlockReport]]:
     """Sequentially quantize a chain of blocks (the paper's full procedure).
 
@@ -829,22 +1028,29 @@ def quantize_blocks(blocks: List[BlockHandle], recipe: QuantRecipe,
     emitted the recipe's rules, recorded in every checkpoint; a resume
     whose per-site plans or allocation digest differ raises ("PTQ resume
     mismatch"). ``chunk`` and ``graphs`` as in ``reconstruct_block``.
+    ``mesh``: a ``DeviceMesh`` for data-parallel calibration; every rank
+    passes the whole ``x0`` and ``sample_weight`` and keeps its rows of
+    every stream (module docstring). The results are replicated: every
+    rank returns the same finalized blocks, states and errors.
 
     Structurally identical blocks share one engine (``BlockHandle.apply_key``);
     the engines built here are released when the call returns
     (``engine_scope``)."""
-    _use_graphs(graphs, x0.device)  # fail before any work
+    dp = _data_parallel(mesh)
+    _use_graphs(graphs, x0.device, dp)  # fail before any work
     with engine_scope():
         return _quantize_blocks(blocks, recipe, x0, key, as_qtensor,
                                 checkpoint_dir, progress, allocation,
-                                sample_weight, chunk, graphs)
+                                sample_weight, chunk, graphs,
+                                _Rows.of(dp, x0.shape[0]))
 
 
 def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
-                     progress, allocation, sample_weight, chunk, graphs):
+                     progress, allocation, sample_weight, chunk, graphs,
+                     rows: _Rows):
     seeds = torch.Generator()
     seeds.manual_seed(_seed(key, recipe))
-    x_fp = x_q = x0
+    x_fp = x_q = rows.take(x0)
     astates: Dict[str, Any] = {}
     finalized: List[Any] = []
     reports: List[BlockReport] = []
@@ -854,7 +1060,7 @@ def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
         from repro_torch.checkpoint.checkpoint import PTQCheckpointer
         ckpt = PTQCheckpointer(checkpoint_dir)
         resumed = ckpt.load(blocks, recipe, allocation=allocation,
-                            device=x0.device)
+                            device=x0.device, rows=rows)
         if resumed is not None:
             start, finalized, astates, reports, x_fp, x_q = resumed
     for i, block in enumerate(blocks):
@@ -863,24 +1069,24 @@ def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
             continue
         with torch.no_grad():
             y_fp = block.apply(block.params, x_fp, QuantCtx(mode="fp"))
-        astates = init_astates(block, recipe, x_q, prev=astates)
+        astates = init_astates(block, recipe, x_q, prev=astates, rows=rows)
         if recipe.recon == "layer":
             wstates: Dict[str, Any] = {}
             for name, sub, x_site in _explode_layerwise(block, recipe, x_q):
                 with torch.no_grad():
                     y_site = sub.apply(sub.params, x_site, QuantCtx(mode="fp"))
-                ws, a_sub, rep = reconstruct_block(
+                ws, a_sub, rep = _reconstruct(
                     sub, recipe, x_site, y_site,
-                    qdrop.fold_in(bseed, qdrop.salt(name)),
-                    astates=dict(astates), sample_weight=sample_weight,
+                    qdrop.fold_in(bseed, qdrop.salt(name)), dict(astates),
+                    rows.per_rank(x_site.shape[0]), sample_weight,
                     chunk=chunk, graphs=graphs)
                 astates.update(a_sub)
                 wstates[name] = ws[name]
                 reports.append(rep)
         else:
-            wstates, astates, rep = reconstruct_block(
-                block, recipe, x_q, y_fp, bseed, astates=astates,
-                sample_weight=sample_weight, chunk=chunk, graphs=graphs)
+            wstates, astates, rep = _reconstruct(
+                block, recipe, x_q, y_fp, bseed, astates, rows, sample_weight,
+                chunk=chunk, graphs=graphs)
             reports.append(rep)
         new_params = finalize_block(block, recipe, wstates,
                                     as_qtensor=as_qtensor)
@@ -898,5 +1104,5 @@ def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
                           for n, p in site_plans(b, recipe).items()}
                          for b in blocks[:i + 1]]
             ckpt.save(i + 1, finalized, astates, reports, x_fp, x_q,
-                      plans=plan_meta, allocation=allocation)
+                      plans=plan_meta, allocation=allocation, rows=rows)
     return finalized, astates, reports

@@ -48,12 +48,27 @@ run the launcher prints the engine's counters as the reference does
 (``compiles: step=... (total ...)``; ``step`` counts the captures,
 ``probe`` the allocator's probe bodies).
 
+Data-parallel calibration (``--mesh debug|production``, ``--multi-pod``):
+one process per rank, started by ``torchrun``, e.g. the debug mesh's 8
+ranks on one card (gloo) or on the CPU (add ``--device cpu``):
+
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m repro_torch.launch.quantize --arch smollm-135m --mesh debug ...
+
+A world size other than the mesh's exits before any work, naming the ranks
+it needs. Each rank fetches only its data-parallel shard of the
+calibration set and the ranks assemble the global set from the shards
+(``data.assemble_global_batch``: the reference's per-host calibration);
+the reconstruction and the allocator's probe split the streams over the
+data axes (``core.reconstruct``). Global rank 0 alone writes the export
+and the allocation, prints the report and serves; the other ranks wait for
+it at a barrier. Each rank's telemetry file and profile carry its rank.
+
 Flags whose subsystem is not ported yet exit with an error naming the
-ROADMAP item: ``--mesh``/``--multi-pod`` (item 11) and ``--analyze``/
-``--analyze-mem`` (item 15). An encdec arch (whisper-medium) exits before
-any work: its calibration needs frame embeddings the launcher cannot draw
-(the reference's launcher fails on it as well); its entry points are the
-library's.
+ROADMAP item: ``--analyze``/``--analyze-mem`` (item 15). An encdec arch
+(whisper-medium) exits before any work: its calibration needs frame
+embeddings the launcher cannot draw (the reference's launcher fails on it
+as well); its entry points are the library's.
 """
 from __future__ import annotations
 
@@ -74,11 +89,14 @@ from repro_torch.core.qtensor import tree_weight_bytes
 from repro_torch.core.reconstruct import (DEFAULT_CHUNK, engine_stats,
                                           quantize_blocks, reset_engine_stats,
                                           site_plans)
-from repro_torch.data import CalibrationSet, SyntheticTokens
+from repro_torch.data import (CalibrationSet, StragglerPolicy,
+                              SyntheticTokens, assemble_global_batch)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as meshes
 from repro_torch.models.model import build_model
 from repro_torch.obs import profiler
-from repro_torch.obs.sink import JsonlSink, RunManifest, current_manifest
+from repro_torch.obs.sink import (JsonlSink, RunManifest, current_manifest,
+                                  rank_file)
 from repro_torch.obs.telemetry import TELEMETRY, Stopwatch, block_on
 from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -170,9 +188,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["mse", "fisher", "combined"],
                     help="sensitivity metric the allocator minimizes")
     ap.add_argument("--mesh", default=None, choices=["debug", "production"],
-                    help="not ported yet (ROADMAP Queue 1 item 11)")
+                    help="data-parallel calibration over a mesh of torchrun "
+                         "ranks: debug (2, 4) = 8 ranks, production (16, "
+                         "16) = 256")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 11)")
+                    help="with --mesh: the pod x data x model mesh, debug "
+                         "(2, 2, 2), production (2, 16, 16)")
     ap.add_argument("--profile", action="store_true",
                     help="wrap the run in torch.profiler, writing a "
                          "perfetto-loadable Chrome trace under --telemetry "
@@ -194,17 +215,13 @@ def _reject_unported(args) -> None:
             "without frames); quantize it through the library: "
             "build_model(cfg).quant_blocks(params, tokens, frames), then "
             "quantize_blocks (ROADMAP Queue 3)")
-    waits = (
-        (args.mesh is not None or args.multi_pod, "--mesh/--multi-pod",
-         "distributed calibration", 11),
-        (args.analyze or args.analyze_mem, "--analyze/--analyze-mem",
-         "the static checks", 15),
-    )
-    for given, flags, what, item in waits:
-        if given:
-            raise SystemExit(f"repro_torch.launch.quantize: {flags}: {what} "
-                             f"is not ported yet (ROADMAP Queue 1 item "
-                             f"{item})")
+    if args.multi_pod and args.mesh is None:
+        raise SystemExit("repro_torch.launch.quantize: --multi-pod shapes "
+                         "the --mesh; pass --mesh debug or --mesh production")
+    if args.analyze or args.analyze_mem:
+        raise SystemExit("repro_torch.launch.quantize: --analyze/"
+                         "--analyze-mem: the static checks are not ported "
+                         "yet (ROADMAP Queue 1 item 15)")
 
 
 @dataclasses.dataclass
@@ -238,11 +255,77 @@ def build_recipe(args) -> QuantRecipe:
                        batch_size=min(16, args.calib), rules=tuple(args.rule))
 
 
+def build_mesh(kind: str, *, multi_pod: bool = False, device=None):
+    """``--mesh`` -> (DeviceMesh, this rank's device): checks the world size
+    ``torchrun`` gave before any work, then starts the process group
+    (``launch.mesh.init_distributed``) and builds the mesh."""
+    shape, axes = meshes.mesh_layout(kind, multi_pod=multi_pod)
+    need = meshes.ranks_needed(kind, multi_pod=multi_pod)
+    have = int(os.environ.get("WORLD_SIZE", "1"))
+    if have != need:
+        flags = f"--mesh {kind}" + (" --multi-pod" if multi_pod else "")
+        raise SystemExit(
+            f"repro_torch.launch.quantize: {flags} is a {shape} "
+            f"{'x'.join(axes)} mesh of {need} ranks, but this run has a "
+            f"world size of {have}; start {need} ranks with torchrun: python "
+            f"-m torch.distributed.run --nproc-per-node {need} -m "
+            f"repro_torch.launch.quantize {flags} ... (add --device cpu for "
+            "CPU ranks)")
+    dev = meshes.init_distributed(resolve_device(device))
+    mesh = meshes.make_debug_mesh(multi_pod=multi_pod, device_type=dev.type) \
+        if kind == "debug" else meshes.make_production_mesh(
+            multi_pod=multi_pod, device_type=dev.type)
+    return mesh, dev
+
+
+def build_sharded_calibration(src, n_calib: int, mesh, device):
+    """Per-rank calibration for a mesh run: this rank fetches only its
+    data-parallel shard (``SyntheticTokens.batch`` of step 10,000, as
+    ``CalibrationSet.build_sharded``); the ranks exchange the shards and
+    assemble the global set through the straggler policy. Returns
+    (CalibrationSet, (N,) sample weight, or None when every shard came: an
+    all-ones weight only changes the reduction)."""
+    dp = meshes.DataParallel.of(mesh)
+    if n_calib % dp.size:
+        raise SystemExit(
+            f"repro_torch.launch.quantize: --calib {n_calib} does not divide "
+            f"over the mesh's {dp.size} data-parallel ranks; pick a multiple "
+            f"of {dp.size}")
+    per = n_calib // dp.size
+    mine = src.batch(10_000, n_calib, host=dp.rank, n_hosts=dp.size)
+    full = {k: dp.gather_rows(v.to(device), n_calib).cpu()
+            for k, v in mine.items()}
+    shards = [{k: v[h * per:(h + 1) * per].numpy() for k, v in full.items()}
+              for h in range(dp.size)]
+    batch, weight = assemble_global_batch(shards, StragglerPolicy())
+    cal = CalibrationSet(tokens=batch["tokens"])
+    if meshes.is_writer():
+        print(f"calibration: {n_calib} samples assembled from {dp.size} "
+              f"per-rank shards (dp axes {meshes.dp_axes(mesh)}, weight mass "
+              f"{float(weight.sum()):.0f}/{len(cal)})")
+    return cal, (None if float(weight.sum()) == len(cal) else weight)
+
+
 def run(args, params=None, calib_tokens=None) -> LaunchResult:
     """The launcher behind ``main``. ``params`` (a parameter tree) and
     ``calib_tokens`` ((N, S) ints) replace the drawn weights and the
-    synthetic calibration set when given (the tests pass the reference's)."""
-    dev = resolve_device(args.device)
+    synthetic calibration set when given (the tests pass the reference's).
+    With ``--mesh`` it starts the process group and destroys it on the way
+    out."""
+    mesh = None
+    if args.mesh is not None:
+        mesh, dev = build_mesh(args.mesh, multi_pod=args.multi_pod,
+                               device=args.device)
+    else:
+        dev = resolve_device(args.device)
+    try:
+        return _launch(args, params, calib_tokens, dev, mesh)
+    finally:
+        if mesh is not None:
+            meshes.shutdown()
+
+
+def _launch(args, params, calib_tokens, dev, mesh) -> LaunchResult:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     if params is None and args.from_ckpt:
@@ -251,21 +334,30 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
             raise SystemExit(f"--from-ckpt {args.from_ckpt}: no checkpoint")
         params = state["params"]
     elif params is None:
-        print("no --from-ckpt: quantizing randomly-initialized weights "
-              "(structure demo)")
+        if meshes.is_writer():
+            print("no --from-ckpt: quantizing randomly-initialized weights "
+                  "(structure demo)")
         params = model.init(torch.Generator(device=dev).manual_seed(0),
                             device=dev)
 
     recipe = build_recipe(args)
+    sample_weight = None
     if calib_tokens is None:
         src = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq, seed=0)
-        calib_tokens = CalibrationSet.build(src, args.calib).tokens
+        if mesh is not None:
+            cal, sample_weight = build_sharded_calibration(
+                src, args.calib, mesh, dev)
+            calib_tokens = cal.tokens
+        else:
+            calib_tokens = CalibrationSet.build(src, args.calib).tokens
     calib_tokens = torch.as_tensor(calib_tokens).to(dev)
 
     if args.telemetry:
-        manifest = RunManifest.collect(backend=args.backend, device=dev,
-                                       recipe=recipe)
-        events = os.path.join(args.telemetry, "events.jsonl")
+        manifest = RunManifest.collect(
+            backend=args.backend, device=dev, recipe=recipe,
+            mesh=None if mesh is None else ",".join(
+                f"{n}={s}" for n, s in zip(mesh.mesh_dim_names, mesh.shape)))
+        events = rank_file(os.path.join(args.telemetry, "events.jsonl"))
         TELEMETRY.enable(sink=JsonlSink(events), manifest=manifest)
         print(f"telemetry: streaming to {events} "
               f"(git {manifest.git_sha}, schema {manifest.schema_version})")
@@ -274,7 +366,7 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
         "profile"))
     try:
         result = _quantize_and_serve(args, cfg, model, params, recipe,
-                                     calib_tokens, dev)
+                                     calib_tokens, dev, mesh, sample_weight)
         if TELEMETRY.enabled:
             TELEMETRY.emit({"kind": "snapshot", **TELEMETRY.snapshot()})
     finally:
@@ -286,17 +378,20 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
 
 
 def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
-                        dev) -> LaunchResult:
+                        dev, mesh=None, sample_weight=None) -> LaunchResult:
+    writer = meshes.is_writer()
+    say = print if writer else (lambda *a, **k: None)
     x0, blocks, assemble = model.quant_blocks(params, calib_tokens)
     reset_engine_stats()
     alloc_meta = None
     if args.auto_bits is not None:
         recipe, alloc_meta = apply_auto_bits(
             blocks, recipe, x0, value=args.auto_bits, budget=args.budget,
-            objective=args.alloc_objective, resume_dir=args.resume_dir)
+            objective=args.alloc_objective, resume_dir=args.resume_dir,
+            mesh=mesh)
         TELEMETRY.emit({"kind": "allocation", "digest": alloc_meta["digest"],
                         "name": alloc_meta["name"]})
-    if recipe.rules:
+    if recipe.rules and writer:
         overridden = [(n, p.summary()) for b in blocks
                       for n, p in site_plans(b, recipe).items()
                       if recipe.overrides_for(n)]
@@ -309,15 +404,15 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
         resumed = 0 if saved is None else len(saved["reports"])
     finalized, astates, reports = quantize_blocks(
         blocks, recipe, x0, checkpoint_dir=args.resume_dir,
-        progress=lambda s: print(s, flush=True), chunk=args.scan_chunk,
-        allocation=alloc_meta)
+        progress=lambda s: say(s, flush=True), chunk=args.scan_chunk,
+        allocation=alloc_meta, mesh=mesh, sample_weight=sample_weight)
     qparams = assemble(finalized)
 
     ran = reports[resumed:]  # units reconstructed by this process
     steps = sum(r.iters for r in ran)
     loop_s = sum(r.iters / r.steps_per_s for r in ran if r.steps_per_s > 0)
     st = engine_stats()
-    print(f"recon: {steps} steps over {len(ran)} unit(s) in {loop_s:.2f}s "
+    say(f"recon: {steps} steps over {len(ran)} unit(s) in {loop_s:.2f}s "
           f"({steps / max(loop_s, 1e-9):.1f} steps/s); {resumed} unit(s) "
           f"resumed from the checkpoint; compiles: step={st.step_compiles} "
           f"teacher={st.teacher_compiles} student={st.student_compiles} "
@@ -328,6 +423,20 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
 
     out = args.out or os.path.join(tempfile.gettempdir(),
                                    f"quantized_{cfg.name}_{args.method}")
+    result = LaunchResult(cfg=cfg, model=model, qparams=qparams,
+                          astates=astates, recipe=recipe, reports=reports,
+                          resumed_units=resumed, out=out,
+                          allocation=alloc_meta)
+    if writer:  # rank 0 alone exports and serves; the others wait
+        _export_and_serve(args, cfg, model, blocks, recipe, reports, result,
+                          dev)
+    meshes.barrier()
+    return result
+
+
+def _export_and_serve(args, cfg, model, blocks, recipe, reports, result,
+                      dev) -> None:
+    qparams, astates, out = result.qparams, result.astates, result.out
     save_pytree(out, {"params": qparams, "astates": astates},
                 {"arch": cfg.name, "method": args.method,
                  "w_bits": args.w_bits, "a_bits": args.a_bits,
@@ -337,11 +446,6 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
     tot1 = sum(r.err_after for r in reports)
     print(f"quantized {len(blocks)} blocks: recon err {tot0:.3e} -> "
           f"{tot1:.3e}; saved to {out}")
-
-    result = LaunchResult(cfg=cfg, model=model, qparams=qparams,
-                          astates=astates, recipe=recipe, reports=reports,
-                          resumed_units=resumed, out=out,
-                          allocation=alloc_meta)
     if args.serve_smoke:
         result.serve_smoke_us = serve_smoke(
             model, qparams, astates, recipe, cfg, backend=args.backend,
@@ -352,7 +456,6 @@ def _quantize_and_serve(args, cfg, model, params, recipe, calib_tokens,
             slots=args.serve_slots, requests=args.serve_requests,
             max_new=args.serve_max_new, kv_quant=not args.no_kv_quant,
             device=dev)
-    return result
 
 
 def apply_auto_bits(blocks, recipe, x0, *, value: float, budget: str,
@@ -362,7 +465,8 @@ def apply_auto_bits(blocks, recipe, x0, *, value: float, budget: str,
     When ``resume_dir`` holds an ``allocation.json`` from an earlier run the
     recorded allocation is validated against the requested budget and reused
     (no re-probe) so the resumed run quantizes under the identical rules;
-    a different budget fails loudly.
+    a different budget fails loudly. Under a ``mesh`` every rank probes its
+    rows and gets the same allocation; rank 0 alone writes and prints it.
     """
     from repro_torch.allocate import AllocationReport, Budget, auto_allocate
 
@@ -387,13 +491,16 @@ def apply_auto_bits(blocks, recipe, x0, *, value: float, budget: str,
                 f"for sites this model does not have (e.g. {stale[:3]}); "
                 "its rules would silently match nothing — re-probe with a "
                 "fresh checkpoint dir")
-        print(f"reusing recorded allocation from {resume_dir}:")
+        if meshes.is_writer():
+            print(f"reusing recorded allocation from {resume_dir}:")
     else:
         report = auto_allocate(blocks, recipe, x0, Budget(kind, value),
                                objective=objective, mesh=mesh)
-        if resume_dir is not None:
+        if resume_dir is not None and meshes.is_writer():
             report.save(resume_dir)
-    print(report.pretty(), flush=True)
+        meshes.barrier()
+    if meshes.is_writer():
+        print(report.pretty(), flush=True)
     return recipe.with_rules(*report.rules()), report.meta()
 
 

@@ -19,10 +19,16 @@ the same device. Each save prints ``checkpoint: step N saved``.
 The step builds a new state from the old one (``launch.steps``); nothing is
 donated, so the reference's fault with donation (its ``adam_init`` gives
 both moments one zeros buffer, which ``jax.jit(..., donate_argnums=(0,))``
-refuses to donate twice) has no counterpart here. The reference's
-multi-host start (``jax.distributed.initialize`` under
-``JAX_COORDINATOR``) comes with distributed calibration (ROADMAP Queue 1
-item 11).
+refuses to donate twice) has no counterpart here.
+
+Under ``torchrun`` (its environment names a world: the counterpart of the
+reference's ``jax.distributed.initialize`` under ``JAX_COORDINATOR``) each
+rank starts the process group and pins its card
+(``launch.mesh.init_distributed``). As in the reference the step is not
+sharded: every rank trains the same replicated state on the same batches
+(sharded training is the cell programs', ROADMAP Queue 1 item 14). Only
+global rank 0 writes checkpoints, so ranks on one host do not write one
+directory; every rank reads them to resume.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_shape, get_smoke_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshes
 from repro_torch.launch.sharding import ARCH_MODE
 from repro_torch.launch.steps import TRAIN_OPT, make_train_step
 from repro_torch.models.model import build_model
@@ -79,6 +86,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Train; returns the final state (``{"params", "opt", "step"}``)."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
+    ranked = meshes.init_distributed(dev)
+    try:
+        return _train(args, ranked or dev)
+    finally:
+        if ranked is not None:
+            meshes.shutdown()
+
+
+def _train(args, dev) -> Dict[str, Any]:
+    writer = meshes.is_writer()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = get_shape(args.shape)
     B, S = SMOKE_BATCH if args.smoke else (shape.global_batch, shape.seq_len)
@@ -98,20 +115,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         start = 0
     else:
         start = int(meta["step"])
-        print(f"resumed from step {start}", flush=True)
+        if writer:
+            print(f"resumed from step {start}", flush=True)
 
     step_fn = make_train_step(model, cfg, opt_cfg)
     sw = Stopwatch()
     for step in range(start, args.steps):
         state, metrics = step_fn(state, make_batch(cfg, src, step, B, S, dev))
-        if step % 10 == 0 or step == args.steps - 1:
+        if writer and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step:5d}  loss {float(metrics['loss']):.4f}  "
                   f"({sw.elapsed_s():.1f}s)", flush=True)
-        if (step + 1) % args.ckpt_every == 0:
+        if (step + 1) % args.ckpt_every == 0 and writer:
             mgr.save(step + 1, state)
             print(f"checkpoint: step {step + 1} saved", flush=True)
-    mgr.save(args.steps, state)
-    print(f"checkpoint: step {args.steps} saved; training done", flush=True)
+    if writer:
+        mgr.save(args.steps, state)
+        print(f"checkpoint: step {args.steps} saved; training done",
+              flush=True)
+    meshes.barrier()
     return state
 
 

@@ -3,7 +3,8 @@
 
 One process-wide profile: ``start(dir)`` / ``stop()`` bracket the run, with
 CPU activity and, where a card is visible, CUDA activity; ``stop()`` writes
-``trace-<pid>-<n>.json`` into ``dir``. The hot loops mark themselves with
+``trace-<pid>-<n>.json`` into ``dir`` (``trace-<pid>-<n>.rank<r>.json`` in
+a process group of several ranks). The hot loops mark themselves with
 :func:`annotate` (``torch.profiler.record_function`` around each recon chunk,
 serve prefill and decode step), a no-op ``nullcontext`` while profiling is
 off, so instrumented loops pay nothing by default. Load the JSON in perfetto
@@ -16,6 +17,8 @@ import os
 from typing import Optional
 
 import torch
+
+from repro_torch.obs.sink import rank_file
 
 _ACTIVE_DIR: Optional[str] = None
 _PROFILE = None
@@ -57,8 +60,8 @@ def stop() -> Optional[str]:
     _ACTIVE_DIR = _PROFILE = None
     prof.stop()
     _WRITTEN += 1
-    prof.export_chrome_trace(os.path.join(
-        d, f"trace-{os.getpid()}-{_WRITTEN}.json"))
+    prof.export_chrome_trace(rank_file(os.path.join(
+        d, f"trace-{os.getpid()}-{_WRITTEN}.json")))
     return d
 
 

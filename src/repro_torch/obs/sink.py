@@ -154,6 +154,18 @@ class RunManifest:
 _CURRENT: Optional[RunManifest] = None
 
 
+def rank_file(path: str) -> str:
+    """``path`` with this process's rank before its extension when it is
+    one rank of several (a started ``torch.distributed`` group of more
+    than one), so that ranks never write one file; else ``path``."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{dist.get_rank()}{ext}"
+
+
 def current_manifest() -> RunManifest:
     """Process-cached default manifest (git sha, versions, devices)."""
     global _CURRENT

@@ -250,16 +250,32 @@ def test_probe_compiles_per_apply_key_not_per_site(fresh):
 
 
 def test_probe_teacher_is_the_fp_forward_and_refuses_a_mesh(fresh):
+    """The teacher is the fp forward. A mesh is no longer refused: under a
+    world-1 gloo group's flat mesh the teacher is the same function and
+    the probe's scores (whose reductions then run over one rank) equal the
+    unsharded pass's bit for bit, with the same bodies."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    from test_torch_mesh import free_port
     block = make_chain(1)[0]
     x = x_stream()
     y = rc.probe_teacher(block, RECIPE)(block.params, x)
     want = block.apply(block.params, x, rc.QuantCtx(mode="fp"))
     assert torch.equal(y, want) and not y.requires_grad
     assert rc.engine_stats().teacher_compiles == 0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        rc.probe_teacher(block, RECIPE, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        probe_blocks([block], RECIPE, x, mesh=object())
+    plain = probe_blocks(make_chain(2), RECIPE, x)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_flat_mesh(1, device_type="cpu")
+        y = rc.probe_teacher(block, RECIPE, mesh=mesh)(block.params, x)
+        assert torch.equal(y, want)
+        sharded = probe_blocks(make_chain(2), RECIPE, x, mesh=mesh)
+    finally:
+        tmesh.shutdown()
+    assert sharded.scores == plain.scores
+    assert sharded.compile_count == plain.compile_count
 
 
 def test_graphed_probe_on_the_cpu_raises(fresh):

@@ -44,7 +44,8 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.configs.mamba2_130m", "repro_torch.models.rglru",
                "repro_torch.configs.recurrentgemma_2b",
                "repro_torch.configs.shapes", "repro_torch.launch.sharding",
-               "repro_torch.launch.steps", "repro_torch.launch.train")
+               "repro_torch.launch.steps", "repro_torch.launch.train",
+               "repro_torch.launch.mesh", "repro_torch.optim.compress")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():

@@ -30,6 +30,7 @@ the reference's init and the same numpy batches. Tolerances:
   for bit, on every architecture.
 """
 import dataclasses
+import subprocess
 import sys
 
 import jax
@@ -278,3 +279,44 @@ def test_reference_launcher_fails_on_donation(tmp_path):
             jtrain.main()
     finally:
         sys.argv = saved
+
+
+def test_train_launcher_starts_two_ranks(tmp_path):
+    """Under torchrun (2 ranks, gloo on the CPU) each rank starts the
+    process group and trains the replicated state; rank 0 alone writes the
+    checkpoints, and they hold the one-process run's final state bit for
+    bit (one thread on both sides)."""
+    from test_torch_mesh import free_port, rank_env
+    argv = ["--arch", "smollm-135m", "--smoke", "--steps", "3",
+            "--ckpt-every", "2", "--device", "cpu"]
+    env = rank_env(1)
+    for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port", str(free_port()),
+         "-m", "repro_torch.launch.train"] + argv
+        + ["--ckpt-dir", str(tmp_path / "ranks")], capture_output=True,
+        text=True, env=env, timeout=300)
+    log = out.stdout + out.stderr
+    assert out.returncode == 0, log[-4000:]
+    for r in range(2):
+        assert f"distributed: rank {r} of 2, backend gloo (the CPU)" in log
+    assert log.count("checkpoint: step 2 saved") == 1
+    assert log.count("checkpoint: step 3 saved; training done") == 1
+    mgr = CheckpointManager(str(tmp_path / "ranks"))
+    assert mgr.all_steps() == [2, 3]
+    got, _ = mgr.restore(device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    finally:
+        torch.set_num_threads(threads)
+    lg, lw = tree_leaves(got), tree_leaves(want)
+    assert len(lg) == len(lw) and got["step"] == want["step"] == 3
+    for x, y in zip(lg, lw):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
