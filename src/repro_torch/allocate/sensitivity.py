@@ -41,10 +41,16 @@ inside ``reconstruct.engine_scope()`` and is released with it.
 Under a data-parallel ``mesh`` (``launch.mesh``) every rank passes the
 whole calibration stream and probes its rows of it (``reconstruct``'s
 rows, replicated when the ranks do not divide them): the probe MSE is a
-sum over the global element count, all-reduced after each replay (the
-captured body holds no collective), and the fisher proxy's per-feature
-second moments are all-reduced once per block, so every rank gets the
-same scores and the same allocation. The bodies stay one per probe key.
+sum over the global element count, all-reduced after each replay, and the
+fisher proxy's per-feature sums of squares and their counts are
+all-reduced once per block, so every rank gets the same scores and the
+same allocation. The teacher, the body and the capture pass hand the
+model the rank's rows of the global batch (``QuantCtx.rows``): a MoE
+block routes the global token groups and gathers them where a rank's rows
+split one (``models/moe.py``); its captured expert inputs are then the
+global batch's on every rank, which the sums' counts account for. Such a
+body holds a collective, so under a gloo group on a card the bodies run
+call by call. The bodies stay one per probe key.
 
 RTN is used as the probe quantizer regardless of the recipe's method: every
 learnable method starts from the RTN grid, so RTN error ordering is the
@@ -117,8 +123,8 @@ class _ProbeCtx:
     __slots__ = ("_fp", "_cfgs", "_wstates", "_gates")
 
     def __init__(self, cfgs: Dict[str, QuantConfig], wstates: Dict[str, Any],
-                 gates: Dict[str, torch.Tensor]):
-        self._fp = QuantCtx(mode="fp")
+                 gates: Dict[str, torch.Tensor], rows=None):
+        self._fp = QuantCtx(mode="fp", rows=rows)
         self._cfgs = cfgs
         self._wstates = wstates
         self._gates = gates
@@ -183,7 +189,7 @@ class _Probe:
     @torch.no_grad()
     def body(self) -> None:
         gates = {c: self.gate[i] for c, i in self.slot.items()}
-        ctx = _ProbeCtx(self.cfgs, self.wstates, gates)
+        ctx = _ProbeCtx(self.cfgs, self.wstates, gates, self.rows.batch())
         y = self.apply(self.params, self.x, rec._RenameCtx(ctx, self.mapping))
         self.mse.copy_(torch.sum(torch.square(y.float() - self.y_fp.float()))
                        / self.count)
@@ -212,7 +218,11 @@ class _Probe:
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         sw = Stopwatch()
-        with ops.set_aside(), torch.cuda.graph(graph, stream=stream):
+        # a MoE body under a mesh gathers: NCCL's watchdog polls while the
+        # capture runs, which a global capture would refuse
+        mode = "thread_local" if self.rows.split else "global"
+        with ops.set_aside(), torch.cuda.graph(graph, stream=stream,
+                                               capture_error_mode=mode):
             self.body()
         compile_events.record_capture("alloc.probe", sw.elapsed_s())
         self.graph = graph
@@ -256,22 +266,26 @@ def _fisher_proxy(dw: torch.Tensor, m2: Optional[torch.Tensor]) -> float:
 def _second_moments(block: rec.BlockHandle, recipe: QuantRecipe,
                     x: torch.Tensor, rows) -> Dict[str, torch.Tensor]:
     """One capture pass: each exercised site's per-input-feature E[x^2]
-    over its first recorded input (over every rank's rows, in one
-    all-reduce, under a split mesh)."""
-    cap = QuantCtx(mode="capture", recipe=recipe)
+    over its first recorded input. Under a split mesh the sums of squares
+    and the counts are all-reduced (one collective) and divided after: a
+    record of this rank's rows adds its share, and one that every rank
+    holds whole (a gathered MoE's expert input) adds its sums and counts
+    once per rank, which the quotient cancels."""
+    cap = QuantCtx(mode="capture", recipe=recipe, rows=rows.batch())
     block.apply(block.params, x, cap)
-    m2 = {}
-    scale = rows.dp.size if rows.split else 1
+    sums, counts = {}, {}
     for rn in block.sites:
         xs = cap.records.get(rn)
         if xs:
             x32 = xs[0].float()
-            count = x32.numel() // x32.shape[-1] * scale
-            m2[rn] = torch.sum(x32 * x32, dim=tuple(range(x32.dim() - 1))) \
-                / count
-    if rows.split and m2:
-        m2 = dict(zip(m2, rows.dp.all_reduce(list(m2.values()))))
-    return m2
+            sums[rn] = torch.sum(x32 * x32, dim=tuple(range(x32.dim() - 1)))
+            counts[rn] = torch.full((1,), float(x32.numel() // x32.shape[-1]),
+                                    device=x32.device)
+    if rows.split and sums:
+        red = rows.dp.all_reduce(list(sums.values()) + list(counts.values()))
+        sums = dict(zip(sums, red[:len(sums)]))
+        counts = dict(zip(counts, red[len(sums):]))
+    return {rn: sums[rn] / counts[rn] for rn in sums}
 
 
 def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
@@ -288,8 +302,10 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
     the CPU raises. ``mesh``: a ``DeviceMesh``; every rank passes the whole
     ``x0`` and gets every score (module docstring).
     """
-    graphed = rec._use_graphs(graphs, x0.device)  # no collective in a body
     rows = rec._Rows.of(rec._data_parallel(mesh), x0.shape[0])
+    # a body may gather (a MoE under the mesh): not captured under gloo
+    graphed = rec._use_graphs(graphs, x0.device,
+                              rows.dp if rows.split else None)
     stats0 = dataclasses.replace(rec.engine_stats())
     sw = Stopwatch()
     steps = 0
@@ -303,7 +319,7 @@ def probe_blocks(blocks: Sequence[rec.BlockHandle], recipe: QuantRecipe,
             for bi, block in enumerate(blocks):
                 cascade = float(len(blocks) - bi)
                 with TELEMETRY.span("alloc.teacher", block=block.name) as tsp:
-                    y_fp = rec.probe_teacher(block, recipe, mesh)(
+                    y_fp = rec.probe_teacher(block, recipe, mesh, rows=rows)(
                         block.params, x)
                     tsp.block_on(y_fp)
                 plans = rec.site_plans(block, recipe)

@@ -92,6 +92,30 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     return y.permute(0, 2, 3, 1)
 
 
+# ``records`` key under which capture mode lists the layers whose recorded
+# inputs are the global batch's on every rank (``models.moe`` under a mesh)
+GATHERED = "~gathered"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """Under data parallelism: an activation's leading axis holds rows
+    [lo, hi) of a global batch of ``total`` rows, the others live on the
+    other ranks of ``dp`` (``launch.mesh.DataParallel``). A layer whose
+    output row depends on other rows (the MoE's token groups) reads it from
+    ``QuantCtx.rows`` to compute the global program."""
+    dp: Any
+    lo: int
+    hi: int
+    total: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch: the other ranks' rows of ``x`` (exact, by a
+        byte sum; no gradient) around this rank's rows (live)."""
+        full = self.dp.gather_rows(x.detach(), self.total)
+        return torch.cat([full[:self.lo], x, full[self.hi:]])
+
+
 @dataclasses.dataclass
 class QuantCtx:
     mode: str = "fp"
@@ -108,6 +132,9 @@ class QuantCtx:
     backend: str = "auto"
     # pre-resolved per-site plans; names missing here fall back to the recipe
     plans: Optional[Dict[str, SitePlan]] = None
+    # under data parallelism: the rows of the global batch the activations
+    # hold (None: the whole batch, one process)
+    rows: Optional[BatchRows] = None
 
     def __post_init__(self):
         if self.mode not in MODES:

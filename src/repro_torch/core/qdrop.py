@@ -11,6 +11,8 @@ positions, so every rank sees the masks of the single-process run.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import hashlib
 import zlib
@@ -32,6 +34,8 @@ class Rows:
     total: int
 
     def mask(self, shape, drop_prob: float, device) -> torch.Tensor:
+        if _WHOLE.get():  # the activation holds every position already
+            return _keep(self.source, shape, drop_prob, device)
         rows, n = shape[0], self.hi - self.lo
         if rows * self.total % n:
             raise ValueError(f"an activation of {rows} rows does not split "
@@ -44,6 +48,20 @@ class Rows:
 
 
 MaskOrGenerator = Union[torch.Generator, torch.Tensor, np.ndarray, Rows]
+
+_WHOLE = contextvars.ContextVar("qdrop_whole_batch", default=False)
+
+
+@contextlib.contextmanager
+def whole_batch():
+    """Inside, activations hold the whole global batch (a layer that
+    gathered the other ranks' rows, ``models.moe``): a ``Rows`` draw is
+    made at the activation's shape and not sliced, as one process draws."""
+    token = _WHOLE.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE.reset(token)
 
 
 def _keep(src, shape, drop_prob: float, device) -> torch.Tensor:

@@ -101,7 +101,14 @@ axes' process group:
   generator and sliced to the rank's positions (``qdrop.Rows``), so the
   draws are those of the single-process run;
 - the LSQ ranges are all-reduced with MIN and MAX; ``recon_error`` and the
-  curves are global means.
+  curves are global means;
+- every forward hands the model its rows of the global batch
+  (``QuantCtx.rows``), so a layer whose output row depends on other rows
+  computes the global program: a MoE picks its token groups from the
+  global token count and, where the rank's rows split a group, gathers
+  the groups over the data group (``models/moe.py``). The layer-wise
+  reconstruction refuses such a block (its captured expert inputs are the
+  global batch's on every rank).
 
 Every rank applies Adam to the same reduced gradient, so the states stay
 identical on every rank, and a run equals the single-process one up to
@@ -127,7 +134,7 @@ import torch
 
 from repro_torch.core import lsq, qdrop
 from repro_torch.core import paths as pth
-from repro_torch.core.context import QuantCtx
+from repro_torch.core.context import GATHERED, BatchRows, QuantCtx
 from repro_torch.core.qtensor import dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
 from repro_torch.obs import compile_events, profiler
@@ -311,7 +318,8 @@ def init_astates(block: BlockHandle, recipe: QuantRecipe, x_q: torch.Tensor,
     plans = site_plans(block, recipe)
     if all(p.act is None for p in plans.values()):
         return states
-    ctx = QuantCtx(mode="calib", recipe=recipe)
+    ctx = QuantCtx(mode="calib", recipe=recipe,
+                   rows=None if rows is None else rows.batch())
     block.apply(block.params, x_q, ctx)
     records = ctx.records
     if rows is not None and rows.split and records:
@@ -380,6 +388,12 @@ class _Rows:
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         return t if not self.split else self.dp.all_reduce([t])[0]
+
+    def batch(self) -> Optional[BatchRows]:
+        """The model's view of these rows (``QuantCtx.rows``): None when
+        every rank holds them all."""
+        return BatchRows(self.dp, self.lo, self.hi, self.n) if self.split \
+            else None
 
 
 
@@ -506,6 +520,9 @@ class _Engine:
         r, size = (rows.dp.rank, rows.dp.size) if self.reduce else (0, 1)
         self.batch = batch
         self.pos = (r * batch // size, (r + 1) * batch // size)
+        # the model's view of the positions this rank computes
+        self.view = (BatchRows(rows.dp, self.pos[0], self.pos[1], batch)
+                     if self.reduce else None)
         self.count = batch * y_fp[0].numel()
         self.owns_reg = r == 0  # AdaRound's regularizer counted once
         # the global sample weights of a full-batch step (its weight sum)
@@ -579,7 +596,7 @@ class _Engine:
         leaves = wl + al
         with torch.enable_grad():
             ctx = QuantCtx(mode="recon", recipe=recipe, wstates=ws,
-                           astates=as_, key=drop, plans=plans)
+                           astates=as_, key=drop, plans=plans, rows=self.view)
             y = self.apply(self.params, xb, _RenameCtx(ctx, self.mapping))
             se = torch.square(y.float() - yb.float())
             if wb is None:
@@ -774,7 +791,8 @@ def recon_error(block: BlockHandle, recipe: QuantRecipe, wstates, astates,
     """Mean squared block-output error of the recon forward, QDrop off
     (over every rank's rows when ``rows`` are split over a mesh)."""
     ctx = QuantCtx(mode="recon", recipe=recipe, wstates=wstates,
-                   astates=astates, drop_enabled=False, plans=plans)
+                   astates=astates, drop_enabled=False, plans=plans,
+                   rows=None if rows is None else rows.batch())
     y = block.apply(block.params, x_q, ctx)
     se = torch.sum(torch.square(y.float() - y_fp.float()))
     if rows is None or not rows.split:
@@ -952,18 +970,26 @@ def finalize_block(block: BlockHandle, recipe: QuantRecipe, wstates,
 
 
 # --------------------------------------------------------------- probe entry
-def probe_teacher(block: BlockHandle, recipe: QuantRecipe, mesh=None):
+def probe_teacher(block: BlockHandle, recipe: QuantRecipe, mesh=None, *,
+                  rows: Optional[_Rows] = None):
     """The teacher for sensitivity-probe passes (``repro_torch.allocate``):
     ``(params, x) -> y``, the block's fp forward under ``torch.no_grad``.
     The port runs it eagerly, so it compiles nothing and
-    ``teacher_compiles`` stays 0. Under a ``mesh`` each rank passes its own
-    rows: the forward is row by row, so the teacher is the same function
-    (the reference keys its jitted teacher by the mesh)."""
-    del recipe, mesh  # the fp forward reads no plan and no placement
+    ``teacher_compiles`` stays 0. Under a ``mesh`` each rank passes its
+    share of the stream (``rows``, a ``_Rows``: the stream's rows this rank
+    holds; by default x's rows are this rank's of an even split). The
+    forward hands the model its rows of the global batch, so a MoE block
+    routes the global token groups (module docstring) and the teacher is
+    one process's (the reference keys its jitted teacher by the mesh)."""
+    del recipe  # the fp forward reads no plan
+    dp = _data_parallel(mesh)
 
     @torch.no_grad()
     def teacher(params, x):
-        return block.apply(params, x, QuantCtx(mode="fp"))
+        r = rows if rows is not None or dp is None else _Rows.of(
+            dp, x.shape[0] * dp.size)
+        return block.apply(params, x, QuantCtx(
+            mode="fp", rows=None if r is None else r.batch()))
 
     return teacher
 
@@ -976,12 +1002,20 @@ def count_probe_compile() -> None:
 
 # --------------------------------------------------------------------- driver
 @torch.no_grad()
-def _explode_layerwise(block: BlockHandle, recipe: QuantRecipe, x_q):
+def _explode_layerwise(block: BlockHandle, recipe: QuantRecipe, x_q,
+                       rows: _Rows):
     """Per-site sub-blocks for recon='layer': one capture pass records every
     site's input; each site becomes a standalone linear or conv problem
-    (a conv site with the reference's stride 1 and "SAME" padding)."""
-    ctx_q = QuantCtx(mode="capture", recipe=recipe)
+    (a conv site with the reference's stride 1 and "SAME" padding). A
+    layer whose captured inputs are the global batch's on every rank (a
+    MoE that gathered its groups) has no per-rank site stream: refused."""
+    ctx_q = QuantCtx(mode="capture", recipe=recipe, rows=rows.batch())
     block.apply(block.params, x_q, ctx_q)
+    if ctx_q.records.get(GATHERED):
+        raise ValueError(
+            f"{block.name}: layer-wise reconstruction under this mesh: "
+            + "; ".join(ctx_q.records[GATHERED]) + " (block-wise "
+            "reconstruction gathers the groups)")
     subs = []
     for name, site in block.sites.items():
         x_site = ctx_q.records[name][0]
@@ -1068,11 +1102,13 @@ def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
         if i < start:  # finished before the checkpoint: nothing to redo
             continue
         with torch.no_grad():
-            y_fp = block.apply(block.params, x_fp, QuantCtx(mode="fp"))
+            y_fp = block.apply(block.params, x_fp,
+                               QuantCtx(mode="fp", rows=rows.batch()))
         astates = init_astates(block, recipe, x_q, prev=astates, rows=rows)
         if recipe.recon == "layer":
             wstates: Dict[str, Any] = {}
-            for name, sub, x_site in _explode_layerwise(block, recipe, x_q):
+            for name, sub, x_site in _explode_layerwise(block, recipe, x_q,
+                                                        rows):
                 with torch.no_grad():
                     y_site = sub.apply(sub.params, x_site, QuantCtx(mode="fp"))
                 ws, a_sub, rep = _reconstruct(
@@ -1092,7 +1128,8 @@ def _quantize_blocks(blocks, recipe, x0, key, as_qtensor, checkpoint_dir,
                                     as_qtensor=as_qtensor)
         finalized.append(new_params)
         with torch.no_grad():
-            student = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
+            student = QuantCtx(mode="deploy", recipe=recipe, astates=astates,
+                               rows=rows.batch())
             x_q = block.apply(new_params, x_q, student)
         x_fp = y_fp
         if progress:

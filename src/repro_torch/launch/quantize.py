@@ -65,7 +65,7 @@ and the allocation, prints the report and serves; the other ranks wait for
 it at a barrier. Each rank's telemetry file and profile carry its rank.
 
 Flags whose subsystem is not ported yet exit with an error naming the
-ROADMAP item: ``--analyze``/``--analyze-mem`` (item 15). An encdec arch
+ROADMAP item: ``--analyze``/``--analyze-mem`` (item 15.3). An encdec arch
 (whisper-medium) exits before any work: its calibration needs frame
 embeddings the launcher cannot draw (the reference's launcher fails on it
 as well); its entry points are the library's.
@@ -220,8 +220,12 @@ def _reject_unported(args) -> None:
                          "the --mesh; pass --mesh debug or --mesh production")
     if args.analyze or args.analyze_mem:
         raise SystemExit("repro_torch.launch.quantize: --analyze/"
-                         "--analyze-mem: the static checks are not ported "
-                         "yet (ROADMAP Queue 1 item 15)")
+                         "--analyze-mem: the reference's analysis includes "
+                         "the traced-graph layers (QL2xx/3xx/4xx), which "
+                         "are not ported yet (ROADMAP Queue 1 item 15.3); "
+                         "the AST rules, the kernel coverage and the QL304 "
+                         "kernel differ run through python -m "
+                         "repro_torch.analysis.lint")
 
 
 @dataclasses.dataclass

@@ -11,8 +11,22 @@ per-expert dequant-matmul kernel (K5), so the stack is never dequantized in
 device memory.
 
 The reference's mesh placement (``shard_hint`` and the expert-axis choice)
-has no counterpart here: the port runs on one device. The dispatch stays
-the reference's dense one-hot einsum.
+has no counterpart here. The dispatch stays the reference's dense one-hot
+einsum.
+
+**Under data parallelism** (``ctx.rows``, a ``core.context.BatchRows``:
+this rank holds rows [lo, hi) of a global batch) the reference's GSPMD
+program routes the global batch's tokens, so the group size ``N`` is
+picked from the global token count. Where this rank's rows are whole
+global groups, it routes them as they are. Where they are not, it gathers
+the MoE input over the data group (the other ranks' rows exact and
+without gradient, its own rows live), routes the global groups and keeps
+its own rows of the output. A row's output then depends on the other rows
+only through the discrete dispatch, so the ranks' gradients sum to one
+process's. QDrop draws of the expert sites are then made at the global
+shape (``qdrop.whole_batch``). In ``capture`` mode the gathered expert
+inputs are the global batch's on every rank; the layer-wise
+reconstruction refuses them (``context.GATHERED``).
 """
 from __future__ import annotations
 
@@ -21,7 +35,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.context import QuantCtx
+from repro_torch.core import qdrop
+from repro_torch.core.context import GATHERED, QuantCtx
 from repro_torch.core.reconstruct import Site
 from repro_torch.models import common
 
@@ -91,15 +106,12 @@ def route(p: dict, xt: torch.Tensor, cfg):
     return probs, idx, dispatch, combine
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg, ctx: QuantCtx,
+def _routed(p: dict, x: torch.Tensor, N: int, cfg, ctx: QuantCtx,
             name: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (y (B, S, D), Switch auxiliary load-balance loss)."""
+    """The routed experts over x (B, S, D) in groups of N tokens: (y, aux)."""
     B, S, D = x.shape
     E = cfg.n_experts
-    T = B * S
-    N = _pick_group(T, min(cfg.moe_group, T))
-    G = T // N
-    xt = x.reshape(G, N, D)
+    xt = x.reshape(B * S // N, N, D)
     probs, _, dispatch, combine = route(p, xt, cfg)
 
     xd = x.dtype
@@ -108,13 +120,38 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, ctx: QuantCtx,
                     batch_dims=1)
     y = torch.einsum("gnec,gecd->gnd", combine.to(xd), ye).reshape(B, S, D)
 
-    if "shared" in p:
-        y = y + common.mlp(p["shared"], x, ctx, f"{name}.shared", cfg.act)
-
     # auxiliary load-balance loss (Switch eq. 4)
     me = torch.mean(probs, dim=(0, 1))  # (E,)
     fe = torch.mean(dispatch.sum(-1), dim=(0, 1))  # fraction dispatched
-    aux = E * torch.sum(me * fe)
+    return y, E * torch.sum(me * fe)
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg, ctx: QuantCtx,
+            name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), Switch auxiliary load-balance loss).
+    Under ``ctx.rows`` the groups are the global batch's (module
+    docstring)."""
+    B, S, D = x.shape
+    rows = getattr(ctx, "rows", None)
+    T = (B if rows is None else rows.total) * S  # the global program's
+    N = _pick_group(T, min(cfg.moe_group, T))
+    if rows is not None and B != rows.hi - rows.lo:
+        raise ValueError(f"{name}: {B} rows, but ctx.rows holds rows "
+                         f"[{rows.lo}, {rows.hi})")
+    if rows is None or (rows.lo * S % N == 0 and B * S % N == 0):
+        y, aux = _routed(p, x, N, cfg, ctx, name)
+    else:  # this rank's rows split a global group: route the global batch
+        if ctx.mode == "capture":
+            ctx.records.setdefault(GATHERED, []).append(
+                f"{name}: moe_group={cfg.moe_group} over {T} tokens groups "
+                f"{N} tokens, which the {rows.dp.size} data ranks' "
+                f"{B * S} tokens each do not divide")
+        with qdrop.whole_batch():
+            y, aux = _routed(p, rows.gather(x), N, cfg, ctx, name)
+        y = y[rows.lo:rows.hi]
+
+    if "shared" in p:
+        y = y + common.mlp(p["shared"], x, ctx, f"{name}.shared", cfg.act)
     return y, aux
 
 

@@ -45,7 +45,12 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.configs.recurrentgemma_2b",
                "repro_torch.configs.shapes", "repro_torch.launch.sharding",
                "repro_torch.launch.steps", "repro_torch.launch.train",
-               "repro_torch.launch.mesh", "repro_torch.optim.compress")
+               "repro_torch.launch.mesh", "repro_torch.optim.compress",
+               "repro_torch.analysis", "repro_torch.analysis.report",
+               "repro_torch.analysis.layouts", "repro_torch.analysis.coverage",
+               "repro_torch.analysis.diffcheck",
+               "repro_torch.analysis.ast_rules",
+               "repro_torch.analysis.allowlist", "repro_torch.analysis.lint")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
