@@ -52,17 +52,35 @@ printed):
               per tensor and per channel, with states from flexround.init
               (mse observer) and s2 = exp(0.05 N(0, 1)).
    Analysis — the static checks (``repro_torch.analysis.lint.run_analysis
-              (diff_full=True, device="cuda")``): the AST rules over
-              src/repro_torch, the kernel coverage (every layout's kernel
-              and regimes, the conv frontends' QL207 warnings) and the
-              full QL304 lattice (136 cells of six layouts, float32 and
-              bfloat16): every cell's recorded (plain, kernel) pair must be
-              EXPECTED_KERNELS', n_fail 0, and K1/K2/K5 must take decode and
-              mma in bfloat16 and fp32 in float32; the largest error against
-              its bound is logged per layout and dtype. Then the same
-              check_parity at the smollm sites' (K, N) at M = 4 and 512 for
-              each 2-D layout but the odd-K one, and K5 at llama4-scout's
-              E = 16, K = 5120, N = 8192, M = 4, in bfloat16.
+              (mem=True, decode_smoke=True, diff_full=True, device="cuda")``):
+              the AST rules over src/repro_torch; the traced-graph layers
+              (QL2xx, QL301-303, QL305-306, memcheck QL4xx) over the step
+              bodies traced by make_fx with fake CUDA tensors; the kernel
+              coverage (every layout's kernel and regimes, the conv
+              frontends' QL207 warnings) and the full QL304 lattice (136
+              cells of six layouts, float32 and bfloat16): 0 errors, every
+              cell's recorded (plain, kernel) pair EXPECTED_KERNELS', n_fail
+              0, and K1/K2/K5 must take decode and mma in bfloat16 and fp32
+              in float32; the largest error against its bound is logged per
+              layout and dtype, the QL301 proof and each QL401 peak against
+              its budget. Then the same check_parity at the smollm sites'
+              (K, N) at M = 4 and 512 for each 2-D layout but the odd-K one,
+              and K5 at llama4-scout's E = 16, K = 5120, N = 8192, M = 4, in
+              bfloat16. Then the seven seeded bugs, in process, each caught
+              by its rule (QL202 counting CUDA-graph captures); a 2-block
+              then a 4-block toy chain with graphs on, 0 new captures; every
+              entry with a memory budget replayed on the card, the caching
+              allocator's peak above the inputs at most the static peak in
+              512-byte blocks (``memcheck.replay_peak``); the sharded recon
+              entry traced on 2 gloo ranks of the card (torchrun, this
+              script's ``--analysis-mesh-child``), QL206 and QL305 quiet.
+              After the smollm path (4.) serves: a second wave of its
+              requests through its graphed engine inside ``no_retrace(0)``
+              (0 new captures, K1 and K2 launched), and the full-width
+              deploy decode and serving bodies traced from its export:
+              QL403 equal to tree_weight_bytes, QL405 to
+              hbm_per_slot_bytes, the decode replayed against the allocator.
+              The trained launcher (5.) runs with ``--analyze-mem``.
 4. Path     — smollm-135m at full width in bfloat16, weights from
               torch.Generator seed 0: export-only FlexRound PTQ (W4 body, W8
               layers 0 and 29, A8, per-channel) on 8 x 64 calibration tokens,
@@ -259,15 +277,16 @@ printed):
               N % 16 = 8, scalar code loads), K3 there at M 512; K1 and K3
               at both mamba2 sites at the export's 4096 rows, K1 and K2 at
               out_proj (M 2).
-10. Hybrid  — recurrentgemma-2b at full width and depth (26 layers RRA:
-              18 RG-LRU and 8 local-attention blocks, d_model = lru_width
-              2560, 10 heads and 1 KV head of 256, geglu d_ff 7680, vocab
-              256000, window 2048; 7.10 GB of bf16), weights from
+10. Hybrid  — recurrentgemma-2b at full width with 9 of its 26 layers
+              (three whole RRA groups: 6 RG-LRU and 3 local-attention
+              blocks, d_model = lru_width 2560, 10 heads and 1 KV head of
+              256, geglu d_ff 7680, vocab 256000, window 2048), weights from
               torch.Generator seed 0: blocks 1 (R) and 2 (A) of the
               launcher's recipe graphed against graphs=False (bit for bit,
               two engines); then, counters zeroed before and read after,
               the launcher in process with the trained phase's command (W8
-              layers 0 and 25) and ``--serve-smoke --serve``: three
+              layers 0 and 7, R blocks as 0 and 25 are at full depth) and
+              ``--serve-smoke --serve``: three
               engines, the error sum must fall, the skip line
               (``unsupported_family:hybrid``), K1 in both regimes and K3
               (the W8 layers serve as W8A8: the hybrid's sites carry their
@@ -426,7 +445,12 @@ MAMBA_SCAN_TOL = 8e-2
 # site shapes ((2560, 256): wk/wv, the narrowest N of any path; w_down
 # 7680 deep), the W8 last layer, the export's rows (64 x 64 tokens)
 RG_2D = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
-RG_LAST = 25
+# the launcher runs 9 of the 26 layers: three whole (R, R, A) groups; every
+# kernel shape is the full depth's (shapes do not depend on depth). The W8
+# last layer is the cut's last R block, as layer 25 is at full depth: the
+# same three engines (R at W8, R at W4, A at W4) and K3 shapes
+RG_LAYERS = 9
+RG_LAST = 7
 RG_EXPORT_M = 64 * 64
 RG_GRAPH_ITERS = 20  # blocks 1 (R) and 2 (A), graphed against graphs=False
 # the greedy decode over the export: batch 2, a 2040-token prefill and 16
@@ -438,9 +462,9 @@ RG_GRAPH_ITERS = 20  # blocks 1 (R) and 2 (A), graphed against graphs=False
 # an H100 4.42e-2), and re-run along its tokens with the plain versions
 # within 5e-2, as every plain re-run. Served as exported (W4A8, W8A8) each
 # bf16 rounding difference that moves an activation across a rounding
-# boundary of its per-tensor 8-bit grid flips a code, and 26 layers
-# amplify that: on an H100 the decode read 0.324 against the forward and
-# 0.179 against the plain versions. Those two are held to RG_A8_TOL, under
+# boundary of its per-tensor 8-bit grid flips a code, and the layers
+# amplify that: on an H100 at full depth (26 layers) the decode read 0.324
+# against the forward and 0.179 against the plain versions. Those two are held to RG_A8_TOL, under
 # half of the sqrt(2) that unrelated logits read: a wrong scan, ring or
 # kernel is off by O(1); the kernels themselves are held at every shape
 # the path gives them (check_path_shapes)
@@ -1125,10 +1149,12 @@ ANALYSIS_REGIMES = {"bfloat16": ("decode", "mma"), "float32": ("fp32",)}
 
 
 def analysis_phase(torch):
-    """The static checks on the card (item 15.1-15.2): the AST rules, the
-    kernel coverage and the full QL304 lattice in float32 and bfloat16
-    (``repro_torch.analysis.lint.run_analysis``), then the same parity
-    check at the full-width shapes the paths give the kernels. Returns the
+    """The static checks on the card: the full report (AST rules, the
+    traced-graph layers with memcheck, the kernel coverage and the full
+    QL304 lattice in float32 and bfloat16,
+    ``repro_torch.analysis.lint.run_analysis``), the same parity check at
+    the full-width shapes the paths give the kernels, then the graph
+    layers' own card checks (``analysis_graph_checks``). Returns the
     phase's numbers."""
     import tempfile
 
@@ -1139,14 +1165,18 @@ def analysis_phase(torch):
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         pj, cj = Path(tmp, "parity.json"), Path(tmp, "coverage.json")
-        rep = run_analysis(diff_full=True, device="cuda", parity_json=str(pj),
+        mj = Path(tmp, "mem.json")
+        rep = run_analysis(mem=True, mem_json=str(mj), decode_smoke=True,
+                           diff_full=True, device=DEV, parity_json=str(pj),
                            coverage_json=str(cj), log=lines.append)
         parity = json.loads(pj.read_text())
         coverage = json.loads(cj.read_text())
+        records = json.loads(mj.read_text())["entries"]
     lattice_s = time.perf_counter() - t0
     if rep.exit_code() or rep.errors():
         fail("analysis: " + "; ".join(f"{f.rule}/{f.name} {f.where}: "
                                       f"{f.message}" for f in rep.errors()[:6]))
+    report = report_summary(rep, records)
     rows = parity["rows"]
     log(f"analysis: quantlint {len(rep.errors())} errors, "
         f"{len(rep.warnings())} warnings (QL207 conv fallbacks: "
@@ -1198,11 +1228,14 @@ def analysis_phase(torch):
             f"{row.max_abs_err:.3e} bound {row.bound:.3e} ({row.ratio:.3f})")
     gc.collect()
     torch.cuda.empty_cache()
+    full_s = time.perf_counter() - t0 - lattice_s
+    graph = analysis_graph_checks(torch)
     seconds = time.perf_counter() - t0
-    log(f"analysis: lattice {lattice_s:.1f}s, full width "
-        f"{seconds - lattice_s:.1f}s, {len(full)} full-width cells")
+    log(f"analysis: full report {lattice_s:.1f}s, full width {full_s:.1f}s "
+        f"({len(full)} cells), graph checks {graph['seconds']:.1f}s")
     return {"n_rows": parity["n_rows"], "n_fail": parity["n_fail"],
             "seconds": seconds, "lattice_seconds": lattice_s,
+            "report": report, "graph": graph,
             "per_layout": [{"layout": k[0], "dtype": k[1],
                             "kernel": d["kernel"],
                             "regimes": sorted(d["regimes"]),
@@ -1213,6 +1246,275 @@ def analysis_phase(torch):
             "coverage": coverage["rows"], "full_width": full,
             "parity_rows": rows,
             "warnings": [f.where for f in rep.warnings()]}
+
+
+SEEDED_BUGS = (("a_state_drop", "QL201"), ("per_layer_retrace", "QL202"),
+               ("int8_overflow", "QL301"), ("scale_underflow", "QL303"),
+               ("lost_psum", "QL305"), ("dead_donation", "QL402"),
+               ("hbm_blowout", "QL401"))
+ANALYSIS_MESH_RANKS = 2
+
+
+def report_summary(rep, records):
+    """The full report's QL301 proof and QL401 peaks, logged."""
+    proofs = [f.message for f in rep if f.rule == "QL301"
+              and f.severity == "info" and f.message.startswith("proven")]
+    for p in proofs:
+        log(f"analysis: QL301 {p}")
+    if not any("qtensor_matmul[w8a8]" in f.where for f in rep
+               if f.rule == "QL301" and f.severity == "info"):
+        fail("analysis: no QL301 proof of the W8A8 accumulator")
+    peaks = []
+    for r in records:
+        if "budget_trace_bytes" not in r:
+            continue
+        row = {k: r.get(k) for k in (
+            "entry", "max_len", "peak_trace_bytes", "budget_trace_bytes",
+            "envelope_len", "peak_envelope_bytes", "budget_envelope_bytes",
+            "peak_above_inputs_bytes", "peak_rounded_bytes")}
+        peaks.append(row)
+        env = ("" if not r.get("envelope_len") else
+               f", at L={r['envelope_len']} {r['peak_envelope_bytes']} B of "
+               f"{r['budget_envelope_bytes']} B")
+        log(f"analysis: QL401 {r['entry']}: peak {r['peak_trace_bytes']} B "
+            f"of {r['budget_trace_bytes']} B at L={r['max_len']}{env}")
+    return {"errors": len(rep.errors()), "warnings": len(rep.warnings()),
+            "findings": len(rep.findings), "ql301_proofs": proofs,
+            "ql401": peaks}
+
+
+def seeded_runs(torch):
+    """The seven seeded bugs through ``run_analysis``, in process: each
+    must fail with an error of its rule."""
+    from repro_torch.analysis.lint import run_analysis
+    out = []
+    for bug, rule in SEEDED_BUGS:
+        t0 = time.perf_counter()
+        rep = run_analysis(jaxpr_only=True, mem=True, seed_bug=bug,
+                           device=DEV, log=lambda *a, **k: None)
+        hit = [f for f in rep.errors() if f.rule == rule]
+        dt = time.perf_counter() - t0
+        if rep.exit_code() != 1 or not hit:
+            fail(f"analysis: seeded {bug} raised no {rule} error: "
+                 f"{[(f.rule, f.where) for f in rep.errors()]}")
+        if bug == "per_layer_retrace" and "captures grew by" not in \
+                hit[0].message:
+            fail(f"analysis: the per-layer retrace captured nothing on the "
+                 f"card: {hit[0].message}")
+        log(f"analysis: seeded {bug}: {rule} {hit[0].where} ({dt:.1f}s): "
+            f"{hit[0].message[:160]}")
+        out.append({"bug": bug, "rule": rule, "where": hit[0].where,
+                    "errors": sorted({f.rule for f in rep.errors()}),
+                    "seconds": dt, "message": hit[0].message})
+    return out
+
+
+def _replays(torch, entries):
+    """``memcheck.replay_peak`` of each entry, held to the static peak."""
+    from repro_torch.analysis.memcheck import check_memory, replay_peak
+    rows = []
+    for e in entries:
+        got = replay_peak(e)
+        rec = check_memory(e)[1]
+        m, st = got["measured_bytes"], got["static_rounded_bytes"]
+        row = {"entry": e.name, "measured_bytes": m,
+               "static_rounded_bytes": st,
+               "static_bytes": rec["peak_above_inputs_bytes"],
+               "ratio": m / st if st else None}
+        rows.append(row)
+        log(f"analysis: replay {e.name}: allocator peak {m} B above the "
+            f"inputs, static {rec['peak_above_inputs_bytes']} B "
+            f"({st} B in 512-B blocks), ratio "
+            f"{'-' if not st else f'{m / st:.4f}'}")
+        if not 0 <= m <= st:
+            fail(f"analysis: {e.name}'s replay peaked at {m} B, above its "
+                 f"static peak of {st} B in 512-byte blocks")
+    return rows
+
+
+def analysis_graph_checks(torch):
+    """The graph layers' card checks (the analysis phase's docstring):
+    seeded bugs, the graphed chain, replays, the sharded entry."""
+    from repro_torch.analysis import graph_checks as gcheck
+    from repro_torch.analysis import trace as tr
+    from repro_torch.obs import compile_events
+
+    t0 = time.perf_counter()
+    seeded = seeded_runs(torch)
+    seeded_s = time.perf_counter() - t0
+    c0 = compile_events.captures()
+    chain = gcheck.check_retrace(per_layer=False, device=DEV)
+    c1 = compile_events.captures()
+    if chain.errors():
+        fail(f"analysis: the 2-to-4-block chain recaptured: "
+             f"{chain.errors()[0].message}")
+    log(f"analysis: graphed toy chain 2 -> 4 blocks: 0 new captures in the "
+        f"4-block run ({c1 - c0} captures in the call, the 2-block warm-up's "
+        f"included)")
+    lm = tr.deploy_smoke_lm(device=DEV)
+    entries = [tr.recon_chunk_entry(device=DEV),
+               tr.probe_entry(device=DEV),
+               tr.deploy_decode_entry(lm=lm, device=DEV),
+               tr.serve_prefill_entry(lm=lm, device=DEV),
+               tr.serve_decode_entry(lm=lm, device=DEV),
+               tr.serve_decode_entry(kv_quant=False, lm=lm, device=DEV),
+               tr.hbm_blowout_entry(DEV)]
+    replays = _replays(torch, entries)
+    del entries, lm
+    gc.collect()
+    t1 = time.perf_counter()
+    sharded = analysis_mesh_check(torch)
+    sharded_s = time.perf_counter() - t1
+    return {"seconds": time.perf_counter() - t0, "seeded": seeded,
+            "seeded_s": seeded_s, "chain_captures_in_call": c1 - c0,
+            "replays": replays, "sharded": sharded, "sharded_s": sharded_s}
+
+
+def analysis_mesh_child(out_dir: str) -> int:
+    """One rank of the sharded recon entry (under torchrun): traced on a
+    flat (2, 1) mesh of gloo ranks sharing the card, checked, saved."""
+    import os
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import graph_checks as gcheck
+    from repro_torch.analysis import trace as tr
+    from repro_torch.analysis.intervals import check_intervals
+    from repro_torch.analysis.shardcheck import check_shard_safety
+    from repro_torch.launch import mesh as meshes
+    dev = meshes.init_distributed(torch.device(DEV))
+    mesh = meshes.make_flat_mesh(ANALYSIS_MESH_RANKS, device_type=DEV)
+    entry = tr.recon_chunk_entry(mesh=mesh, device=dev)
+    rows = {"name": entry.name, "captured": entry.captured,
+            "collectives": [[c.op, c.group_size, c.backend, c.data_group]
+                            for c in entry.collectives]}
+    for name, rep in (("graph", gcheck.check_entry(entry)),
+                      ("intervals", check_intervals(entry)),
+                      ("shard", check_shard_safety(entry))):
+        rows[name] = [[f.rule, f.severity, f.where, f.message] for f in rep]
+    Path(out_dir, f"rank{os.environ['RANK']}.json").write_text(
+        json.dumps(rows))
+    meshes.shutdown()
+    return 0
+
+
+def analysis_mesh_check(torch):
+    """The sharded recon entry on ANALYSIS_MESH_RANKS gloo ranks of the
+    card (torchrun): no error, QL206 and QL305 quiet, every collective
+    over the data group."""
+    import os
+    d = RUNS_DIR / "analysis_mesh"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(ANALYSIS_MESH_RANKS), "--master-addr", "localhost",
+           "--master-port", str(_free_port()), str(ROOT / "chip_smoke.py"),
+           "--analysis-mesh-child", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with open(d / "torchrun.log", "w") as fh:
+        proc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                              env=env, cwd=str(ROOT), timeout=300)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"analysis: the sharded entry's {ANALYSIS_MESH_RANKS}-rank run "
+             f"exited {proc.returncode}:\n"
+             f"{(d / 'torchrun.log').read_text()[-4000:]}")
+    ranks = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(ANALYSIS_MESH_RANKS)]
+    for r, rows in enumerate(ranks):
+        errs = [f for k in ("graph", "intervals", "shard") for f in rows[k]
+                if f[1] == "error"]
+        loud = [f for k in ("graph", "shard") for f in rows[k]
+                if f[0] in ("QL206", "QL305")]
+        colls = rows["collectives"]
+        if errs or loud or not colls or not all(
+                c[3] and c[1] == ANALYSIS_MESH_RANKS for c in colls):
+            fail(f"analysis: sharded entry on rank {r}: errors {errs}, "
+                 f"QL206/QL305 {loud}, collectives {colls}")
+    log(f"analysis: {ranks[0]['name']} on {ANALYSIS_MESH_RANKS} gloo ranks "
+        f"({ranks_s:.1f}s): {len(ranks[0]['collectives'])} collectives, "
+        f"all over the data group ({ranks[0]['collectives'][0][2]}); QL206 "
+        f"and QL305 quiet, 0 errors; captured {ranks[0]['captured']}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"seconds": ranks_s, "name": ranks[0]["name"],
+            "collectives": ranks[0]["collectives"],
+            "captured": ranks[0]["captured"],
+            "findings": ranks[0]["graph"] + ranks[0]["shard"]}
+
+
+def analysis_path_checks(torch, model, qparams, ctx, engine, requests,
+                         outs):
+    """On the smollm path (after its counters are read): a second wave of
+    its requests through its graphed engine inside ``no_retrace(0)`` (0
+    new captures, K1 and K2 launched), then the full-width deploy decode
+    and serving bodies traced from the export: QL403 equal to
+    tree_weight_bytes, QL405 to hbm_per_slot_bytes, the decode replayed
+    against the allocator."""
+    from repro_torch.analysis import no_retrace
+    from repro_torch.analysis import trace as tr
+    from repro_torch.analysis.memcheck import (check_kv_static_gap,
+                                               check_memory)
+    from repro_torch.core.qtensor import tree_weight_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.obs import compile_events
+
+    t0 = time.perf_counter()
+    before, c0 = ops.launch_counts(), compile_events.captures()
+    with no_retrace(0):
+        outs2, _, _ = serve_all(engine, requests)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    wave = {k: after[k] - before[k] for k in after}
+    captures = compile_events.captures() - c0
+    same = outs2 == outs
+    log(f"analysis: second serving wave under no_retrace(0): {captures} new "
+        f"captures, launches K1 {wave['dequant_matmul_w4']}, K2 "
+        f"{wave['dequant_matmul_w8']}, K3 {wave['qmatmul_int8']}; tokens "
+        f"equal to the first wave's: {same}")
+    if captures or wave["dequant_matmul_w4"] == 0 or \
+            wave["dequant_matmul_w8"] == 0:
+        fail(f"analysis: second wave: {captures} captures, launches {wave}")
+    lm = (model.cfg, model, qparams, ctx)
+    entries = [tr.deploy_decode_entry(lm=lm, device=DEV),
+               tr.serve_decode_entry(lm=lm, device=DEV),
+               tr.serve_decode_entry(kv_quant=False, lm=lm, device=DEV)]
+    wbytes = tree_weight_bytes(qparams)
+    recs, per_slot = [], {}
+    for e in entries:
+        rep, rec = check_memory(e)
+        recs.append(rec)
+        exp = {r["measure"]: r for r in rec["expect"]}
+        per_slot[e.name] = exp["kv_cache"]["expected_bytes"] // e.mem.slots
+        if rep.errors() or exp["weights"]["static_bytes"] != wbytes or \
+                exp["weights"]["expected_bytes"] != wbytes or \
+                exp["kv_cache"]["static_bytes"] != \
+                exp["kv_cache"]["expected_bytes"]:
+            fail(f"analysis: full-width {e.name}: {rep.errors()[:2]}, "
+                 f"expect {rec['expect']}, tree_weight_bytes {wbytes}")
+        log(f"analysis: full-width {e.name}: QL403 weights "
+            f"{exp['weights']['static_bytes']} B = tree_weight_bytes "
+            f"{wbytes} B; KV {exp['kv_cache']['static_bytes']} B; static "
+            f"peak {rec['peak_trace_bytes']} B")
+    gap = check_kv_static_gap(entries[1:])
+    del per_slot[entries[0].name]  # the uniform decode's cache has no slots
+    if gap.errors() or not gap.by_rule("QL405"):
+        fail(f"analysis: full-width QL405: {[f.message for f in gap]}")
+    log(f"analysis: full-width QL405: {gap.by_rule('QL405')[0].message}; "
+        f"hbm_per_slot_bytes {per_slot}")
+    replays = _replays(torch, entries[:1])
+    del entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0,
+            "second_wave": {"captures": captures, "launches": wave,
+                            "tokens_equal": same},
+            "full_width": [{k: r.get(k) for k in (
+                "entry", "expect", "peak_trace_bytes",
+                "peak_above_inputs_bytes", "window_state_bytes_per_token")}
+                for r in recs],
+            "tree_weight_bytes": wbytes, "hbm_per_slot_bytes": per_slot,
+            "ql405": gap.by_rule("QL405")[0].message, "replays": replays}
 
 
 # -------------------------------------------------------------------- path
@@ -1455,11 +1757,13 @@ def device_window(trace_dir, mark):
             "top5": [{"name": n[:120], "ms": t / 1e3} for n, t in top]}
 
 
-def serve_phase(torch, np, model, qparams, ctx, export_counts, tag):
+def serve_phase(torch, np, model, qparams, ctx, export_counts, tag,
+                keep=None):
     """The main path's serving run (graphed) with the counters running,
     then, after the main path's counters are read, the eager comparison
     and the two profiled decode windows. Returns (counts at the end of the
-    main path, requests, outputs, stats)."""
+    main path, requests, outputs, stats); ``keep``, a dict, receives the
+    graphed engine under "engine"."""
     from repro_torch.kernels import ops
     requests, outs, stats, engine = run_engine(torch, np, model, qparams, ctx)
     counts = ops.launch_counts()  # the main path's run ends here
@@ -1473,6 +1777,8 @@ def serve_phase(torch, np, model, qparams, ctx, export_counts, tag):
                                                   f"{tag}_graphed"),
                         "eager": profile_decode(torch, np, eager_engine,
                                                 f"{tag}_eager")}
+    if keep is not None:
+        keep["engine"] = engine
     return counts, requests, outs, stats
 
 
@@ -1648,8 +1954,9 @@ def path_phase(torch, np, arch="smollm-135m", n_layers=None, w8_layers=(0, 29),
         fail(f"export pass did not launch K1 and K3: {export_counts}")
     qparams = dict(params, layers=list(fin))
     ctx = QuantCtx(mode="deploy", recipe=recipe, astates=astates)
+    keep = {}
     counts, requests, outs, stats = serve_phase(
-        torch, np, model, qparams, ctx, export_counts, tag)
+        torch, np, model, qparams, ctx, export_counts, tag, keep)
     serve_counts = stats["serve_launches"]
     if serve_counts["dequant_matmul_w4"] == 0 or serve_counts["dequant_matmul_w8"] == 0:
         fail(f"serving did not launch K1 and K2: {serve_counts}")
@@ -1671,9 +1978,15 @@ def path_phase(torch, np, arch="smollm-135m", n_layers=None, w8_layers=(0, 29),
     if not math.isfinite(rc["rel_l2"]) or rc["rel_l2"] > 5e-2 or not rc["ties_ok"]:
         fail("kernel and plain-version serving disagree beyond bf16 tolerance")
     rc.pop("routes")
+    analysis = None
+    if tag == "smollm":
+        analysis = analysis_path_checks(torch, model, qparams, ctx,
+                                        keep["engine"], requests, outs)
+    del keep
     return counts, dict(stats, export_s=export_s, max_memory_allocated=peak,
                         err=errs, export_launches=export_counts,
-                        serve_launches=serve_counts, recheck=rc)
+                        serve_launches=serve_counts, recheck=rc,
+                        analysis=analysis)
 
 
 def launcher_argv(iters: int, arch: str = "smollm-135m", last: int = 29):
@@ -1830,8 +2143,11 @@ def run_launcher(torch, argv):
     from repro_torch.kernels import ops
     from repro_torch.launch import quantize as launcher
 
+    from repro_torch.core import reconstruct as rc
+    from repro_torch.obs import compile_events
+
     marks = {}
-    real_serve = launcher.serve_engine_run
+    real_serve, real_analyze = launcher.serve_engine_run, launcher.analyze
 
     def serve_engine_run(*args, **kwargs):
         torch.cuda.synchronize()
@@ -1839,8 +2155,22 @@ def run_launcher(torch, argv):
         marks["export_s"] = time.perf_counter() - t0
         return real_serve(*args, **kwargs)
 
+    def analyze(*args, **kwargs):
+        # the launcher path's run ends where --analyze starts: its
+        # counters, engine stats and captures are read here
+        torch.cuda.synchronize()
+        marks.update(end=ops.launch_counts(), end_s=time.perf_counter() - t0,
+                     engine=dataclasses.replace(rc.engine_stats()),
+                     step_captures=len(compile_events.capture_seconds(
+                         "recon.step")),
+                     peak=torch.cuda.max_memory_allocated())
+        t1 = time.perf_counter()
+        real_analyze(*args, **kwargs)
+        marks["analyze_s"] = time.perf_counter() - t1
+
     torch.cuda.reset_peak_memory_stats()
     launcher.serve_engine_run = serve_engine_run
+    launcher.analyze = analyze
     try:
         ops.reset_launch_counts()  # the launcher path's run starts here
         t0 = time.perf_counter()
@@ -1850,10 +2180,14 @@ def run_launcher(torch, argv):
         launcher_s = time.perf_counter() - t0
     finally:
         launcher.serve_engine_run = real_serve
+        launcher.analyze = real_analyze
+    if "end" in marks:
+        counts, launcher_s = marks["end"], marks["end_s"]
+        res.analyze_marks = marks
     export_counts = marks["export"]
     serve_counts = {k: counts[k] - export_counts[k] for k in counts}
     return (res, counts, export_counts, serve_counts, marks["export_s"],
-            launcher_s, torch.cuda.max_memory_allocated())
+            launcher_s, marks.get("peak", torch.cuda.max_memory_allocated()))
 
 
 def trained_phase(torch, np, export_only_errs, path_serve_counts):
@@ -1873,10 +2207,13 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     n_caps = len(compile_events.capture_seconds("recon.step"))
     argv = launcher_argv(TRAIN_ITERS) + [
         "--resume-dir", str(RUNS_DIR / "trained_ckpt"),
-        "--out", str(RUNS_DIR / "trained_export"), "--serve"]
+        "--out", str(RUNS_DIR / "trained_export"), "--serve", "--analyze-mem"]
     log("trained: python -m repro_torch.launch.quantize " + " ".join(argv))
     (res, counts, export_counts, serve_counts, export_s, launcher_s,
-     peak) = run_launcher(torch, argv)
+     peak) = run_launcher(torch, argv)  # exits non-zero on a finding
+    marks = res.analyze_marks
+    log(f"trained: --analyze-mem ran {marks['analyze_s']:.2f}s after the "
+        "launcher's run and found no error")
     reports = res.reports
     errs = [(r.err_before, r.err_after) for r in reports]
     n_layers = res.cfg.n_layers
@@ -1891,8 +2228,11 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     log(f"trained: launcher {launcher_s:.2f}s, {steps} steps, export (to the "
         f"serve run) {export_s:.2f}s, {loop_s:.2f}s in the Adam loops, "
         f"{steps / loop_s:.1f} steps/s, peak {peak} B")
-    st = rc.engine_stats()  # the launcher zeroed it before its run
-    caps = compile_events.capture_seconds("recon.step")[n_caps:]
+    # the launcher zeroed the stats before its run; read where --analyze
+    # started (its retrace check builds and captures toy engines)
+    st = marks["engine"]
+    caps = compile_events.capture_seconds("recon.step")[
+        n_caps:marks["step_captures"]]
     engine = dict(dataclasses.asdict(st), compile_count=st.compile_count)
     log(f"trained engine: {engine}; step captures "
         f"{' '.join(f'{c:.3f}s' for c in caps)}")
@@ -1968,7 +2308,8 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
         recipe={"setting": recipe.setting, "iters": recipe.iters,
                 "lr": recipe.lr, "batch_size": recipe.batch_size,
                 "calib": [64, 64]},
-        launcher_s=launcher_s, export_s=export_s, loop_s=loop_s, steps=steps,
+        launcher_s=launcher_s, analyze_s=marks["analyze_s"],
+        export_s=export_s, loop_s=loop_s, steps=steps,
         steps_per_s=steps / loop_s, max_memory_allocated=peak,
         engine_stats=engine, step_capture_s=caps,
         err=errs, err_before_sum=before, err_after_sum=after,
@@ -3472,15 +3813,15 @@ def forward_vs_decode(torch, model, params, ctx, prompt, generated, tol,
 
 
 def hybrid_phase(torch, np, rows):
-    """recurrentgemma-2b at full width and depth (26 layers RRA: 18 RG-LRU
-    and 8 local-attention blocks, d_model = lru_width 2560, 10 query heads
-    and 1 KV head of 256, geglu d_ff 7680, vocab 256000, window 2048;
-    3.55 G weights, 7.10 GB of bf16), weights from torch.Generator seed 0.
+    """recurrentgemma-2b at full width with RG_LAYERS of its 26 layers
+    (three whole RRA groups: 6 RG-LRU and 3 local-attention blocks, d_model
+    = lru_width 2560, 10 query heads and 1 KV head of 256, geglu d_ff 7680,
+    vocab 256000, window 2048), weights from torch.Generator seed 0.
     First blocks 1 (R) and 2 (A) of the launcher's recipe, RG_GRAPH_ITERS
     iterations graphed against graphs=False, bit for bit (two engines).
     Then the main path, the counters zeroed just before and read just
     after: the launcher in process with the trained phase's command
-    (``launcher_argv``: W4 body, W8 layers 0 and 25, A8, QDrop,
+    (``launcher_argv``: W4 body, W8 layers 0 and RG_LAST, A8, QDrop,
     TRAIN_ITERS iterations, 64 x 64 tokens) and ``--serve-smoke --serve``:
     three engines (R at W8, R at W4, A at W4) and their captures, the
     error sum must fall, ``--serve`` must print its skip line
@@ -3531,6 +3872,9 @@ def hybrid_phase(torch, np, rows):
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     window = PathWindow(torch)
+    real_get_config = launcher.get_config
+    launcher.get_config = lambda name: dataclasses.replace(
+        real_get_config(name), n_layers=RG_LAYERS)
     try:
         sys.stdout = tee
         window.start()  # the recurrentgemma main path's run starts here
@@ -3540,6 +3884,7 @@ def hybrid_phase(torch, np, rows):
         launcher_s = time.perf_counter() - t0
     finally:
         sys.stdout = tee.out
+        launcher.get_config = real_get_config
     rows.extend(check_path_shapes(torch, window, rows, "recurrentgemma-2b"))
     cfg, model, qparams = run.cfg, run.model, run.qparams
     errs = [(r.err_before, r.err_after) for r in run.reports]
@@ -3563,7 +3908,8 @@ def hybrid_phase(torch, np, rows):
     log(f"recurrentgemma: sum of err_before {before:.6e}, sum of err_after "
         f"{after:.6e}; skip line printed: {skip in tee.text()}")
     if (cfg.n_layers, cfg.d_model, cfg.lru_width, cfg.head_dim, cfg.vocab,
-            cfg.local_window) != (26, 2560, 2560, 256, 256000, 2048) or \
+            cfg.local_window) != (RG_LAYERS, 2560, 2560, 256, 256000,
+                                  2048) or \
             got_w8 != [0, RG_LAST] or not after < before or \
             run.serve is not None or skip not in tee.text() or \
             not math.isfinite(run.serve_smoke_us) or \
@@ -4619,6 +4965,8 @@ def main() -> int:
         return mesh_child(sys.argv[2], sys.argv[3:])
     if len(sys.argv) > 2 and sys.argv[1] == "--moe-mesh-child":
         return moe_mesh_child(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "--analysis-mesh-child":
+        return analysis_mesh_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -4659,6 +5007,7 @@ def main() -> int:
     log(f"analysis phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counts, path = path_phase(torch, np)
+    analysis["smollm_path"] = path.pop("analysis")
     log(f"smollm path phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 """The kernel-table layouts and their exemplar inputs: the slice of
 ``repro/analysis/trace.py`` that the kernel coverage (QL207) and the
 kernel differ (QL304) need (``MATMUL_LAYOUTS``, ``_export_qt``,
-``_a_state_for``, ``matmul_example``). The traced-graph layers are item
-15.3's.
+``_a_state_for``, ``matmul_example``); the traced-graph entries
+(:mod:`repro_torch.analysis.trace`) draw their matmul exemplars from it
+too.
 
 Weights and activations are drawn from explicit ``torch.Generator``s
 (seed 9 for weights, 13 for x) on an explicit device, where the reference

@@ -2,12 +2,14 @@
 of ``repro/analysis/report.py`` (framework-free, copied and adapted).
 
 Every analyzer — the AST rules (:mod:`repro_torch.analysis.ast_rules`), the
-kernel coverage (:mod:`repro_torch.analysis.coverage`) and the kernel
-differ (:mod:`repro_torch.analysis.diffcheck`) — emits :class:`Finding`s
-into a :class:`Report`. A finding carries a stable rule id (``QL1xx`` = AST
-rules, ``QL2xx`` = coverage, ``QL3xx`` = the differ), a severity, and a
-location: ``file:line`` for AST findings, ``coverage:<site>`` and
-``diff:<layout>#<cell>`` for the others.
+traced-graph checks (``graph_checks``, ``intervals``, ``shardcheck``,
+``memcheck``), the kernel coverage (:mod:`repro_torch.analysis.coverage`)
+and the kernel differ (:mod:`repro_torch.analysis.diffcheck`) — emits
+:class:`Finding`s into a :class:`Report`. A finding carries a stable rule
+id (``QL1xx`` = AST rules, ``QL2xx`` = graph wiring and coverage,
+``QL3xx`` = numerics and the differ, ``QL4xx`` = memory), a severity, and
+a location: ``file:line`` for AST findings, ``graph:<entry>#<label or
+op>``, ``coverage:<site>`` and ``diff:<layout>#<cell>`` for the others.
 
 Allowlisting: intentional violations are suppressed by
 :class:`AllowEntry` rows — ``(rule, where-glob, reason)`` — either from the

@@ -64,9 +64,13 @@ data axes (``core.reconstruct``). Global rank 0 alone writes the export
 and the allocation, prints the report and serves; the other ranks wait for
 it at a barrier. Each rank's telemetry file and profile carry its rank.
 
-Flags whose subsystem is not ported yet exit with an error naming the
-ROADMAP item: ``--analyze``/``--analyze-mem`` (item 15.3). An encdec arch
-(whisper-medium) exits before any work: its calibration needs frame
+``--analyze``/``--analyze-mem`` run quantlint
+(``repro_torch.analysis.lint.run_analysis``, with memcheck for the
+latter) on the launcher's device after the run, print the report and exit
+non-zero on an error finding; on the CPU that includes QL304's
+``needs-card`` (the kernel differ needs the card). Under ``--mesh`` every
+rank traces (the sharded recon entry joins) and rank 0 prints. An encdec
+arch (whisper-medium) exits before any work: its calibration needs frame
 embeddings the launcher cannot draw (the reference's launcher fails on it
 as well); its entry points are the library's.
 """
@@ -169,11 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--scan-chunk", type=_at_least_one, default=DEFAULT_CHUNK,
                     help="reconstruction steps between host syncs (the "
                          "reference's steps per fused dispatch); >= 1")
-    # not ported yet: each exits with its ROADMAP item (see _reject_unported)
     ap.add_argument("--analyze", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 15)")
+                    help="after the run, the quantlint report "
+                         "(repro_torch.analysis.lint); exits non-zero on an "
+                         "error finding")
     ap.add_argument("--analyze-mem", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 15)")
+                    help="--analyze with memcheck (QL4xx)")
     ap.add_argument("--auto-bits", type=float, default=None, metavar="VALUE",
                     help="automatic mixed precision: probe per-site "
                          "sensitivity and allocate bit-widths to meet this "
@@ -202,9 +207,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args) -> None:
-    """Exit (non-zero, naming the ROADMAP item) on a flag whose subsystem
-    the port does not have yet, and on an encoder-decoder arch, whose frames
-    the launcher has no source for; never ignore one silently."""
+    """Exit (non-zero) on an encoder-decoder arch, whose frames the
+    launcher has no source for, and on flags that cannot combine; never
+    ignore one silently."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "encdec":
         raise SystemExit(
@@ -218,14 +223,6 @@ def _reject_unported(args) -> None:
     if args.multi_pod and args.mesh is None:
         raise SystemExit("repro_torch.launch.quantize: --multi-pod shapes "
                          "the --mesh; pass --mesh debug or --mesh production")
-    if args.analyze or args.analyze_mem:
-        raise SystemExit("repro_torch.launch.quantize: --analyze/"
-                         "--analyze-mem: the reference's analysis includes "
-                         "the traced-graph layers (QL2xx/3xx/4xx), which "
-                         "are not ported yet (ROADMAP Queue 1 item 15.3); "
-                         "the AST rules, the kernel coverage and the QL304 "
-                         "kernel differ run through python -m "
-                         "repro_torch.analysis.lint")
 
 
 @dataclasses.dataclass
@@ -323,10 +320,27 @@ def run(args, params=None, calib_tokens=None) -> LaunchResult:
     else:
         dev = resolve_device(args.device)
     try:
-        return _launch(args, params, calib_tokens, dev, mesh)
+        result = _launch(args, params, calib_tokens, dev, mesh)
+        if args.analyze or args.analyze_mem:
+            analyze(dev, mem=args.analyze_mem)
+        return result
     finally:
         if mesh is not None:
             meshes.shutdown()
+
+
+def analyze(dev, *, mem: bool = False) -> None:
+    """``--analyze``/``--analyze-mem``: the quantlint report on ``dev``
+    (every rank of a mesh traces; rank 0 prints); exits non-zero on an
+    error finding."""
+    from repro_torch.analysis.lint import run_analysis
+    writer = meshes.is_writer()
+    rep = run_analysis(mem=mem, device=dev,
+                       log=print if writer else (lambda *a, **k: None))
+    if writer:
+        print(rep.pretty())
+    if rep.exit_code():
+        raise SystemExit("quantlint: error findings (see above)")
 
 
 def _launch(args, params, calib_tokens, dev, mesh) -> LaunchResult:

@@ -50,7 +50,12 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.analysis.layouts", "repro_torch.analysis.coverage",
                "repro_torch.analysis.diffcheck",
                "repro_torch.analysis.ast_rules",
-               "repro_torch.analysis.allowlist", "repro_torch.analysis.lint")
+               "repro_torch.analysis.allowlist", "repro_torch.analysis.lint",
+               "repro_torch.analysis.trace",
+               "repro_torch.analysis.graph_checks",
+               "repro_torch.analysis.intervals",
+               "repro_torch.analysis.shardcheck",
+               "repro_torch.analysis.memcheck")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -70,6 +75,21 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_analysis_entry_points_default_to_cuda(monkeypatch):
+    """The traced entries and the lint run trace on the card unless asked
+    for the CPU."""
+    from repro_torch.analysis import lint
+    from repro_torch.analysis import trace as tr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (tr.probe_entry, tr.flexround_apply_entry,
+                  tr.dead_donation_entry):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lint.run_analysis(jaxpr_only=True, log=lambda *a, **k: None)
+    assert tr.flexround_apply_entry(device="cpu").device.type == "cpu"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
