@@ -243,7 +243,7 @@ printed):
               the encoder output baked into every decoder block sets).
               Block 0's 20 iterations graphed against graphs=False, bit for
               bit; then, counters zeroed before and read after, all 24
-              decoder blocks at 100 iterations through the captured engine
+              decoder blocks at WHISPER_ITERS = 60 through the captured engine
               (the error sum must fall; the export must launch K1 in the
               mma regime and K3) and uniform-batch serving (batch 4, 16
               prompt tokens, 16 greedy steps over 1504 frames) with the
@@ -324,7 +324,9 @@ printed):
               max_memory_allocated.
 13. Mesh    — data-parallel calibration (run after the auto-bits phase).
               (a) An NCCL group of one rank in process: smollm-135m at full
-              width and depth through ``quantize_blocks`` with the
+              width, ``MESH_LAYERS`` = 6 of its 30 layers (W8 layers 0 and
+              5; all 30 until the cells phase took the seconds), through
+              ``quantize_blocks`` with the
               launcher's recipe at ``MESH_ITERS`` = 12 iterations, graphed,
               under ``make_flat_mesh(1)`` and without a mesh: finalized
               blocks, activation states, errors and curves equal bit for
@@ -338,7 +340,8 @@ printed):
               torch.distributed.run --nproc-per-node 8 chip_smoke.py
               --mesh-child DIR <launcher flags>``, each rank calling
               ``repro_torch.launch.quantize.main`` with the smollm recipe,
-              ``--mesh debug --iters 12 --serve-smoke --serve``; rank 0
+              ``--mesh debug --iters 12 --serve-smoke --serve`` at
+              ``MESH_LAYERS`` layers; rank 0
               counts its launches (the main path of this phase) and records
               its K1/K2/K3 shapes; every rank records its seconds, peak
               memory and the collectives' share of its Adam loop. Held
@@ -359,6 +362,35 @@ printed):
               full batch and of minibatches against one process
               (``MOE_MESH_*``).
 
+14. Cells   — the cell programs (``launch.steps.build_cell`` on a mesh of
+              one rank, ``launch.mesh.AbstractMesh((1, 1), ...)``), each
+              at its shape's sequence length and the global batch over
+              16 (the 16 x 16 layout's data axis), arguments drawn from
+              the programs' ``meta`` stand-ins (``specs.materialize``,
+              torch.Generator seed 0; quantized weights as random codes,
+              scales and zeros; decode caches drawn whole):
+              smollm-135m at full size ``train_4k`` (16 x 4096, 1 warm +
+              3 timed steps), ``prefill_32k`` int8 (2 x 32768: K2 at M =
+              65,536; its plain run first, then 1 timed) and ``decode_32k`` (8 x 32768, 1 warm + 10 timed
+              steps at the cache's last positions) with bf16, int8 and
+              int4 weights over a bf16 cache and int4 over an int8 one,
+              and mamba2-130m ``long_500k`` int8 (1 x 524288, 10 timed
+              steps). Counters zeroed before the first cell and read
+              after the last. Each cell prints its median ms (CUDA
+              events), ``roofline.analysis.analyze``'s compute and memory
+              seconds, bottleneck and bound on the card's row, the bound
+              over the measured time, MFU (model flops over measured time
+              x bf16 peak), ``max_memory_allocated`` and its K1/K2
+              launches. Each serve cell runs once more with the plain
+              versions along the same inputs: its caches within 5e-2
+              relative L2 and its next tokens equal but where the plain
+              run's top-2 logit gap is within 5e-2 of its largest logit
+              (counted); then 1 + CELL_TRACED_STEPS = 2 more kernel steps
+              of each smollm decode cell, the 2 traced with obs.profiler
+              (device-busy share, device ops a step, host syncs, top 5).
+              Every K1/K2 shape the cells gave is held against the plain
+              version (``check_path_shapes``).
+
 Every phase logs its seconds. The line before the last is the JSON kernel
 summary (K1-K5, launches per path); the last line
 is ``{"ok": true, "device": {...}}``. A per-shape table goes to
@@ -366,6 +398,7 @@ is ``{"ok": true, "device": {...}}``. A per-shape table goes to
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -380,9 +413,9 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and ops/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# the card's published peaks (bytes/s, ops/s by input type): its row of
+# repro_torch.roofline.analysis.CARD_PEAKS, set by main()
+PEAKS = None
 L2_BYTES = 50 * 2**20
 
 SMOLLM_SITES = {  # (K, N) of every quantized site of one layer
@@ -422,7 +455,10 @@ WHISPER_CALIB = 16  # calibration samples = the minibatch: the encoder output
                     # baked into every decoder block holds all of them
 WHISPER_EXPORT_M = WHISPER_CALIB * 64  # rows of the export's decoder sites
 WHISPER_BLOCK0_ITERS = 20  # block 0, graphed against graphs=False
-WHISPER_ITERS = 100        # all 24 decoder blocks
+# all 24 decoder blocks; 100 until the cells phase needed the seconds
+# (on an H100 at 100 the error sum fell 2.396 -> 1.203, each W4 block's to
+# under half by then)
+WHISPER_ITERS = 60
 WHISPER_SERVE = (4, 16, 16)  # batch, prompt tokens, greedy steps
 # mamba2-130m: in_proj (768, 3352), whose N % 16 = 8 sends K1/K2/K3 down
 # their scalar code loads with a last N tile of 24 columns; out_proj
@@ -582,8 +618,8 @@ def _copies(wbytes: int, extra_bytes: int = 0) -> int:
 def roofline(n_ops: float, in_type: str, byte_count: int):
     """Least time (ms) for the work: bytes over the memory rate vs ops over
     the peak rate for the input type; returns (ms, "bytes"|"operations")."""
-    t_bytes = byte_count / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS[in_type]
+    t_bytes = byte_count / PEAKS.hbm_bytes_per_s
+    t_ops = n_ops / PEAKS.ops[in_type]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -4362,6 +4398,11 @@ def loss_phase(torch, np):
 # -------------------------------------------------------------------- mesh
 MESH_ITERS = 12  # the reference's exact horizon (tests/test_sharded_recon.py)
 MESH_RANKS = 8   # the debug mesh (2, 4): 2 data-parallel ranks x 4 model
+# (a) and (b) take 6 of smollm-135m's 30 layers (W8 layers 0 and 5): full
+# width, so every kernel shape, engine and collective of the full depth, a
+# fifth of its blocks (they ran all 30 until the cells phase needed the
+# seconds)
+MESH_LAYERS = 6
 MESH_BACKEND = "nccl"  # the in-process group of one rank
 # The 8 ranks against one process (PERF.md §6). Float summation
 # order differs, and Adam's first steps turn a near-zero gradient's sign
@@ -4385,8 +4426,23 @@ MESH_SUM_TOL = 0.5       # relative, the sum of err_after
 
 
 def mesh_argv():
-    """The mesh phase's launcher flags (the launcher's smollm recipe)."""
-    return launcher_argv(MESH_ITERS) + ["--serve-smoke", "--serve"]
+    """The mesh phase's launcher flags (the launcher's smollm recipe at
+    MESH_LAYERS layers)."""
+    return launcher_argv(MESH_ITERS, last=MESH_LAYERS - 1) + [
+        "--serve-smoke", "--serve"]
+
+
+@contextlib.contextmanager
+def mesh_depth():
+    """The launcher's configs cut to MESH_LAYERS layers inside the block."""
+    from repro_torch.launch import quantize as launcher
+    real = launcher.get_config
+    launcher.get_config = lambda name: dataclasses.replace(
+        real(name), n_layers=MESH_LAYERS)
+    try:
+        yield
+    finally:
+        launcher.get_config = real
 
 
 def _free_port() -> int:
@@ -4434,9 +4490,10 @@ def mesh_world1_check(torch, np):
     from repro_torch.obs import profiler
     from repro_torch.optim import adam, compress
 
-    args = launcher.build_parser().parse_args(launcher_argv(MESH_ITERS))
+    args = launcher.build_parser().parse_args(
+        launcher_argv(MESH_ITERS, last=MESH_LAYERS - 1))
     recipe = launcher.build_recipe(args)
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=MESH_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
     calib = torch.as_tensor(CalibrationSet.build(SyntheticTokens(
@@ -4588,7 +4645,8 @@ def mesh_child(out_dir: str, argv) -> int:
     if window is not None:
         window.start()  # the mesh path's run starts here
     t0 = time.perf_counter()
-    res = launcher.main(argv)
+    with mesh_depth():
+        res = launcher.main(argv)
     torch.cuda.synchronize()
     counts = window.stop() if window is not None else None
     loop_s = sum(r.iters / r.steps_per_s for r in res.reports
@@ -4651,9 +4709,13 @@ def mesh_launcher_check(torch, np, rows):
     cal, _ = CalibrationSet.build_sharded(SyntheticTokens(
         vocab=cfg.vocab, seq_len=args.seq, seed=0), args.calib, 2)
     t0 = time.perf_counter()
-    one = launcher.run(args, calib_tokens=cal.tokens)
+    with mesh_depth():
+        one = launcher.run(args, calib_tokens=cal.tokens)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
+    if len(one.reports) != MESH_LAYERS or len(ranks[0]["err"]) != MESH_LAYERS:
+        fail(f"mesh: {len(one.reports)} and {len(ranks[0]['err'])} blocks, "
+             f"not {MESH_LAYERS}")
 
     errs = [tuple(e) for e in ranks[0]["err"]]
     one_errs = [(r.err_before, r.err_after) for r in one.reports]
@@ -4931,6 +4993,297 @@ def mesh_moe_check(torch, np):
                      for t in ("fb", "mb")}}
 
 
+# ------------------------------------------------------------------ cells
+# The cell programs on the card (``launch.steps.build_cell`` on a mesh of
+# one rank): (arch, shape, weights, kv, warm steps, timed steps). Each runs
+# at its shape's sequence length with a batch of the shape's global batch
+# over CELL_DATA, the data axis of the 16 x 16 layout (at least 1); a
+# decode cell's steps take the cache's last positions. The prefill cell's
+# plain run goes first and warms what the two runs share (a prefill takes
+# ~11 s on an H100: PERF.md). CELL_TOL: the plain re-runs' relative L2, as
+# every path's
+CELLS = (("smollm-135m", "train_4k", "bf16", "bf16", 1, 3),
+         ("smollm-135m", "prefill_32k", "int8", "bf16", 0, 1),
+         ("smollm-135m", "decode_32k", "bf16", "bf16", 1, 10),
+         ("smollm-135m", "decode_32k", "int8", "bf16", 1, 10),
+         ("smollm-135m", "decode_32k", "int4", "bf16", 1, 10),
+         ("smollm-135m", "decode_32k", "int4", "int8", 1, 10),
+         ("mamba2-130m", "long_500k", "int8", "bf16", 1, 10))
+CELL_DATA = 16
+CELL_TOL = 5e-2
+
+
+def cell_shape(name: str):
+    from repro_torch.configs import ShapeSpec, get_shape
+    s = get_shape(name)
+    return ShapeSpec(s.name, s.seq_len, max(1, s.global_batch // CELL_DATA),
+                     s.kind)
+
+
+def _tmap(fn, tree):
+    from repro_torch.launch import specs
+    return specs.map_with_path(lambda _, t: fn(t), tree)
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key],
+                                                       f"{path}.{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _flat(t, f"{path}.{i}").items()}
+    return {path: tree}
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _token_check(tok, logits):
+    """The kernel run's next tokens (B, 1) against the plain run's logits
+    (B, 1, V): (tokens, differing, near-ties). A token may differ only
+    where the plain run's top-2 gap is within CELL_TOL of its largest
+    logit's magnitude."""
+    lf = logits.float()
+    top2 = lf.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= CELL_TOL * lf.abs().amax(dim=-1)
+    diff = lf.argmax(dim=-1) != tok
+    return int(tok.numel()), int(diff.sum()), int((diff & near).sum())
+
+
+def _timed(torch, fn, n_warm, n_timed):
+    """``fn(i)`` for i in range(n_warm + n_timed), each between CUDA
+    events; returns (ms of the timed calls, the last result)."""
+    ms, out = [], None
+    for i in range(n_warm + n_timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(i)
+        end.record()
+        end.synchronize()
+        if i >= n_warm:
+            ms.append(start.elapsed_time(end))
+    return ms, out
+
+
+CELL_TRACED_STEPS = 2  # decode steps of each smollm decode cell traced
+
+
+def trace_cell_steps(torch, fn, steps, tag):
+    """``fn(i)`` for i in range(steps), each annotated ``cell.step``, traced
+    with obs.profiler after one untraced call: ``device_window``'s numbers
+    over their window."""
+    from repro_torch.obs import profiler
+    d = RUNS_DIR / f"profile_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    fn(0)
+    torch.cuda.synchronize()
+    with profiler.trace(str(d)):
+        for i in range(steps):
+            with profiler.annotate("cell.step", i):
+                fn(i)
+        torch.cuda.synchronize()
+    return device_window(d, "cell.step")
+
+
+def run_cell(torch, np, arch, shape_name, weights, kv, n_warm, n_timed):
+    """One cell: its program from ``build_cell``, real arguments drawn from
+    its stand-ins (seed 0), ``n_warm + n_timed`` calls of ``prog.fn``; a
+    serve cell then once more with the plain versions along the same
+    inputs. Returns the cell's record (``roofline.report``'s format plus
+    the measurements)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, specs, steps
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.roofline import analysis
+
+    cfg, shape = get_config(arch), cell_shape(shape_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors
+    t0 = time.perf_counter()
+    prog = steps.build_cell(cfg, shape, AbstractMesh((1, 1), ("data", "model")),
+                            weights=weights, kv=kv)
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    fp = model.init(gen, device=DEV)
+
+    def draw_tokens(meta):
+        return torch.randint(0, cfg.vocab, tuple(meta.shape), generator=gen,
+                             device=DEV, dtype=torch.int32)
+
+    before = ops.launch_counts()
+    rec = {"cell": f"{arch}|{shape_name}|{shape.seq_len}x{shape.global_batch}"
+                   f"|{weights}|kv-{kv}", "status": "ok"}
+    if shape.kind == "train":
+        opt = steps.TRAIN_OPT[sharding.ARCH_MODE.get(cfg.name, "tp")]
+        state = {"params": fp, "opt": adam_init(fp, opt), "step": 0}
+        batch = {k: draw_tokens(v) for k, v in prog.args[1].items()}
+        del fp
+        losses = []
+
+        def step(i):
+            nonlocal state
+            state, m = prog.fn(state, batch)
+            losses.append((float(m["loss"]), float(m["gnorm"])))
+
+        ms, _ = _timed(torch, step, n_warm, n_timed)
+        peak = torch.cuda.max_memory_allocated()
+        if state["step"] != n_warm + n_timed or not all(
+                math.isfinite(a) and math.isfinite(b) for a, b in losses):
+            fail(f"cell {prog.name}: step {state['step']}, (loss, gnorm) "
+                 f"{losses}")
+        rec["train"] = {"loss_gnorm": losses}
+        del state, batch
+    else:
+        params = specs.materialize(prog.args[0], gen, DEV, fill=fp)
+        del fp
+        plain = (steps.make_prefill_step if shape.kind == "prefill"
+                 else steps.make_serve_step)(model, cfg, "torch", logits=True)
+        if shape.kind == "prefill":
+            cache = _tmap(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                device=DEV), prog.args[2])
+            tokens = draw_tokens(prog.args[1])
+            extra = [specs.materialize(a, gen, DEV) for a in prog.args[3:]]
+            # the plain run first: it also warms what both runs share (the
+            # attention, the allocator); the kernel run then writes the
+            # same cache again
+            _, pcache, plog = plain(params, tokens, cache, *extra)
+            pcache = _tmap(lambda t: t.clone(), pcache)
+            torch.cuda.reset_peak_memory_stats()
+            ms, (tok, kernel_cache) = _timed(
+                torch, lambda i: prog.fn(params, tokens, cache, *extra),
+                n_warm, n_timed)
+            peak = torch.cuda.max_memory_allocated()
+            toks = [(tok, plog)]
+            window = slice(None)
+        else:
+            # drawn as a long prefill would leave it; an attention cache is
+            # written at each step's position before it is read there, so
+            # the plain run replays the same positions over the same buffer
+            # (a recurrent state is overwritten whole: copied first)
+            cache = specs.materialize(prog.args[2], gen, DEV)
+            recurrent = cfg.family in ("ssm", "hybrid")
+            start_state = _tmap(lambda t: t.clone(), cache) if recurrent \
+                else None
+            first = shape.seq_len - n_warm - n_timed
+            inputs = [draw_tokens(prog.args[1])]
+
+            def step(i):
+                nonlocal cache
+                tok, cache = prog.fn(params, inputs[-1], cache, first + i)
+                inputs.append(tok)
+
+            ms, _ = _timed(torch, step, n_warm, n_timed)
+            peak = torch.cuda.max_memory_allocated()
+            window = slice(None) if recurrent else slice(first, None)
+            kernel_cache = _tmap(
+                lambda t: t.clone() if recurrent or t.dim() < 3
+                else t[:, :, window].clone(), cache)
+            pcache = start_state if recurrent else cache
+            toks = []
+            for i in range(n_warm + n_timed):
+                _, pcache, plog = plain(params, inputs[i], pcache, first + i)
+                toks.append((inputs[i + 1], plog))
+            if not recurrent:  # the kernel run's first steps again, traced
+                rec["trace"] = trace_cell_steps(
+                    torch, lambda i: prog.fn(params, inputs[i], cache,
+                                             first + i),
+                    CELL_TRACED_STEPS, f"cell_{weights}_{kv}")
+        torch.cuda.synchronize()
+        got = _flat(kernel_cache)
+        want = {k: (v if v.dim() < 3 or window == slice(None)
+                    else v[:, :, window]) for k, v in _flat(pcache).items()}
+        rel = {k: _rel_l2(got[k], want[k]) for k in want}
+        n_tok = n_diff = n_near = 0
+        for tok, plog in toks:
+            a, b, c = _token_check(tok, plog)
+            n_tok, n_diff, n_near = n_tok + a, n_diff + b, n_near + c
+        rec["plain"] = {"cache_rel_l2": rel, "tokens": n_tok,
+                        "differ": n_diff, "near_ties": n_near}
+        if max(rel.values()) > CELL_TOL or n_diff != n_near or any(
+                not math.isfinite(v) for v in rel.values()):
+            fail(f"cell {prog.name}: against the plain versions caches "
+                 f"{rel}, {n_diff} of {n_tok} tokens differ ({n_near} "
+                 f"near-ties)")
+        del params, cache, pcache, kernel_cache, got, want, toks
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    launches = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+    a = analysis.analyze(cfg, shape, 1, weights, kv=kv, card=PEAKS)
+    med = float(np.median(ms))
+    rec.update(
+        name=prog.name, seq_len=shape.seq_len, batch=shape.global_batch,
+        ms=med, ms_all=ms, seconds=time.perf_counter() - t0,
+        memory={"peak_bytes_per_device": peak, "held_before_bytes": held},
+        analysis=a, fraction=a["step_time_bound_s"] * 1e3 / med,
+        mfu=analysis.model_flops(cfg, shape, 1) / (
+            med * 1e-3 * PEAKS.ops["bfloat16"]),
+        launches=launches)
+    k1 = launches.get("dequant_matmul_w4", 0)
+    k2 = launches.get("dequant_matmul_w8", 0)
+    want = {"bf16": (False, False), "int8": (False, True),
+            "int4": (True, False)}[weights]
+    if ((k1 > 0, k2 > 0) != want or set(launches) - {
+            "dequant_matmul_w4", "dequant_matmul_w8", "dequant_matmul_w4[decode]",
+            "dequant_matmul_w4[mma]", "dequant_matmul_w8[decode]",
+            "dequant_matmul_w8[mma]"}):
+        fail(f"cell {prog.name}: launches {launches}, want K1/K2 {want}")
+    line = (f"cell {prog.name} ({shape.seq_len} x {shape.global_batch}, kv "
+            f"{kv}): {med:.3f} ms (median of {len(ms)}), bound "
+            f"{a['step_time_bound_s'] * 1e3:.4f} ms ({a['bottleneck']}; "
+            f"compute {a['compute_s']:.4e} s, memory {a['memory_s']:.4e} s), "
+            f"fraction {rec['fraction']:.4f}, MFU {rec['mfu']:.5f}, peak "
+            f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before the cell), "
+            f"K1 {k1} K2 {k2} launches")
+    if "plain" in rec:
+        p = rec["plain"]
+        line += (f"; plain versions: cache rel L2 <= "
+                 f"{max(p['cache_rel_l2'].values()):.3e}, {p['tokens'] - p['differ']}"
+                 f"/{p['tokens']} tokens equal, {p['near_ties']} near-ties")
+    else:
+        line += f"; (loss, gnorm) {[tuple(round(v, 4) for v in x) for x in rec['train']['loss_gnorm']]}"
+    log(line)
+    if "trace" in rec:
+        t = rec["trace"]
+        share = t["device_busy_share"]
+        log(f"  traced {t['marks']} steps: window {t['window_ms']:.3f} ms, "
+            f"device busy {t['device_busy_ms']:.3f} ms ("
+            f"{'not measured' if share is None else f'{100 * share:.1f}%'}), "
+            f"{t['device_ops'] // t['marks']} device ops a step, "
+            f"{t['host_syncs']} host syncs, {t['copies_to_device']} copies "
+            "to the device; top 5: " + "; ".join(
+                f"{x['name'][:60]} {x['ms']:.3f} ms" for x in t["top5"]))
+    return rec
+
+
+def cells_phase(torch, np, rows):
+    """The cell programs on the card (the docstring's phase 14): every cell
+    of CELLS in one counter window (the main path of this phase), then
+    every K1/K2 shape the window gave held against its plain version.
+    Returns (launch counts, cell records)."""
+    window = PathWindow(torch)
+    window.start()  # the cells' run starts here
+    recs = [run_cell(torch, np, *c) for c in CELLS]
+    counts = window.stop()  # ... and ends here
+    rows.extend(check_path_shapes(torch, window, rows, "cells"))
+    for k in ("dequant_matmul_w4", "dequant_matmul_w8"):
+        if counts[k] == 0:
+            fail(f"cells: {k} was not launched: {counts}")
+    from repro_torch.roofline import report
+    cells = {r["cell"]: r for r in recs}
+    for line in report.summary(cells).splitlines():
+        log(f"cells: {line}")
+    return counts, recs
+
+
 def mesh_phase(torch, np, rows):
     """Data-parallel calibration on the card (the docstring's phase 13).
     Returns rank 0's launch counts and the phase's numbers."""
@@ -4979,8 +5332,11 @@ def main() -> int:
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
+    from repro_torch.roofline import analysis as roofline_peaks
 
+    global PEAKS
     resolve_device()  # pins TF32 off for every float32 product below
+    PEAKS = roofline_peaks.peaks(torch.cuda.get_device_name(0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -5084,6 +5440,11 @@ def main() -> int:
     t0 = time.perf_counter()
     loss = loss_phase(torch, np)
     log(f"loss phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cells_counts, cells = cells_phase(torch, np, rows)
+    log(f"cells phase: {time.perf_counter() - t0:.1f}s")
 
     summary = []
     for name in KERNEL_NAMES:
@@ -5100,7 +5461,8 @@ def main() -> int:
                    "whisper-medium": wh_counts[name],
                    "mamba2-130m-trained": mb_counts[name],
                    "recurrentgemma-2b-trained": rg_counts[name],
-                   "flexround_fake_quant": k4_counts[name]}
+                   "flexround_fake_quant": k4_counts[name],
+                   "cells": cells_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
                  {"M": timed["M"], "K": timed["K"], "N": timed["N"],
@@ -5132,7 +5494,7 @@ def main() -> int:
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
          "deepseek_path": ds_path, "whisper_path": wh_path,
          "mamba_path": mb_path, "recurrentgemma_path": rg_path,
-         "training": training, "loss": loss}, indent=1))
+         "training": training, "loss": loss, "cells": cells}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ hybrid.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,42 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def param_count(self) -> Tuple[int, int]:
+        """(total, active) parameter estimates for MODEL_FLOPS."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        Dh = self.head_dim
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            d_in = self.ssm_expand * D
+            per = D * 2 * d_in + d_in * D + d_in * (2 * self.ssm_state + 2)
+            tot = emb + L * per
+            return tot, tot
+        attn = D * (self.n_heads * Dh) * 2 + D * (self.n_kv_heads * Dh) * 2
+        if self.use_mla:
+            r, rq = self.kv_lora_rank, self.q_lora_rank
+            dn, dr, dv = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
+            H = self.n_heads
+            attn = (D * rq + rq * H * (dn + dr) + D * (r + dr)
+                    + r * H * (dn + dv) + H * dv * D)
+        mlp_mult = 3 if self.act == "swiglu" else 2
+        dense_mlp = mlp_mult * D * F
+        if self.is_moe:
+            moe_mlp = mlp_mult * D * self.moe_d_ff
+            shared = mlp_mult * D * self.moe_d_ff * self.n_shared_experts
+            n_moe = L - self.first_dense
+            tot = (emb + L * attn + self.first_dense * dense_mlp
+                   + n_moe * (self.n_experts * moe_mlp + shared + D * self.n_experts))
+            act = (emb + L * attn + self.first_dense * dense_mlp
+                   + n_moe * (self.top_k * moe_mlp + shared + D * self.n_experts))
+            return tot, act
+        n_attn_layers = L + self.enc_layers
+        tot = emb + n_attn_layers * (attn + dense_mlp)
+        if self.enc_layers:  # cross attention in decoder
+            tot += L * attn
+        # hybrid: RG-LRU blocks replace attention in R layers, counted as
+        # attention (about the same size)
+        return tot, tot
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

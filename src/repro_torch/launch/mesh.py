@@ -33,6 +33,7 @@ row owned by one rank and zero elsewhere (x + 0 = x, bit for bit).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -91,6 +92,18 @@ def make_debug_mesh(*, multi_pod: bool = False,
 def make_flat_mesh(n_devices: int, device_type: Optional[str] = None):
     """All ranks on the data axis, (n, 1)."""
     return _make_mesh((n_devices, 1), ("data", "model"), device_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape and axis names with no process group and no device
+    (the reference's ``jax.sharding.AbstractMesh``): what the spec
+    functions and the cell programs read.
+    ``AbstractMesh(*mesh_layout("production"))`` is the 16 x 16 layout;
+    ``AbstractMesh((1, 1), ("data", "model"))`` a world of one, where every
+    placement is a whole tensor."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

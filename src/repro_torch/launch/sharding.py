@@ -20,14 +20,17 @@ Meshes are read through ``mesh_dim_names`` and ``shape`` only (a
 
 ``placements(spec, mesh)`` turns a spec into DTensor ``Shard``/
 ``Replicate`` placements, one per mesh dim (``named`` maps it over a tree).
-The data-parallel reconstruction reads ``stream_spec`` only; the others are
-shape logic for the sharded cell programs (ROADMAP Queue 1 item 14).
+The data-parallel reconstruction reads ``stream_spec`` only; the cell
+programs (``launch.steps.build_cell``) record the others, which act once a
+program runs across ranks (ROADMAP Queue 1 item 14.2).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Optional, Tuple
 
+from repro_torch.core.qtensor import QTensor
 from repro_torch.launch.mesh import axis_size, dp_axes
 
 ARCH_MODE = {
@@ -98,11 +101,22 @@ def _is_spec(x) -> bool:
 def _map_specs(fn, tree):
     if _is_spec(tree):
         return fn(tree)
+    if isinstance(tree, QTensor):
+        return _qtensor_map(lambda _, s: _map_specs(fn, s), tree)
     if isinstance(tree, dict):
         return {k: _map_specs(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_specs(fn, v) for v in tree)
     return fn(tree)
+
+
+def _qtensor_map(fn, q: QTensor, path=()) -> QTensor:
+    """A QTensor whose ``codes``, ``scale`` and ``zero`` are ``fn(path +
+    (field,), tensor)``: the reference's QTensor is a pytree over those
+    three, so its spec trees hold one spec per field."""
+    return dataclasses.replace(
+        q, **{f: fn(path + (f,), getattr(q, f))
+              for f in ("codes", "scale", "zero")})
 
 
 def _div(dim: int, mesh, axes) -> bool:
@@ -159,10 +173,13 @@ def _embed_spec(shape, mesh, mode: str, transposed: bool) -> Spec:
 
 
 def param_spec_tree(shapes: Any, cfg, mesh, mode: Optional[str] = None) -> Any:
-    """Spec tree matching a params shape tree."""
+    """Spec tree matching a params shape tree; a QTensor leaf gets a
+    QTensor of specs, one for each of its codes, scale and zero."""
     mode = mode or ARCH_MODE.get(cfg.name, "tp")
 
     def rule(path, leaf):
+        if isinstance(leaf, QTensor):  # a spec per field, named <site>.codes
+            return _qtensor_map(rule, leaf, path)
         name = _path_str(path)
         shape = tuple(leaf.shape)
         if mode == "dp" or len(shape) <= 1:

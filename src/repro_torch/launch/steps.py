@@ -1,4 +1,4 @@
-"""The training step (port of ``make_train_step`` and ``TRAIN_OPT`` in
+"""The training step and the cell programs (port of
 ``repro/launch/steps.py``).
 
 A step is the fp forward (``model.loss`` under ``QuantCtx(mode="fp")``),
@@ -9,18 +9,40 @@ so it round-trips through ``checkpoint.CheckpointManager``. The step
 builds a new state and leaves the old one as it was (the reference jits it
 with the state donated).
 
-The cell programs (``train_cell``, ``serve_cell``, ``build_cell``) place a
-step on a mesh: they come with the dry run (ROADMAP Queue 1 item 14).
+A cell program (``CellProgram``, from ``build_cell``) bundles one (arch x
+shape x weights) cell: its step function, its arguments as ``specs``
+stand-ins (meta tensors), the spec trees of ``launch.sharding`` for the
+arguments and the results (the reference's ``NamedSharding.spec`` as
+tuples), and the arguments the reference donates. Weight modes for
+serving:
+
+  bf16   full-precision serving (the roofline's baseline)
+  int8   FlexRound-quantized weight-only (the paper's LLM recipe)
+  int4   packed-int4 weight-only
+
+The serve steps run under ``QuantCtx(mode="deploy")``: on the card every
+QTensor linear goes through the CUDA kernels (``kernels/ops``); the step
+builders' ``backend="torch"`` runs their plain versions. A cell program is run
+here on a mesh of one rank only (``mesh.AbstractMesh((1, 1), ("data",
+"model"))``), where every placement is a whole tensor: the caller draws
+real arguments of the stand-ins' shapes (``specs.materialize``) and calls
+``fn``. Running one across ranks, the dry run over the production meshes
+and sharded training are ROADMAP Queue 1 item 14.2.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core.context import QuantCtx
-from repro_torch.optim.adam import (AdamConfig, adam_update, tree_leaves,
-                                    tree_unflatten)
+from repro_torch.launch import sharding as shd
+from repro_torch.launch import specs as sp
+from repro_torch.models.model import build_model
+from repro_torch.optim.adam import (AdamConfig, adam_init, adam_update,
+                                    tree_leaves, tree_unflatten)
 
 TRAIN_OPT = {
     "fsdp": AdamConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0,
@@ -28,6 +50,16 @@ TRAIN_OPT = {
     "tp": AdamConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0),
     "dp": AdamConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0),
 }
+
+
+@dataclasses.dataclass
+class CellProgram:
+    name: str
+    fn: Callable
+    args: Tuple[Any, ...]
+    in_shardings: Tuple[Any, ...]
+    out_shardings: Any
+    donate_argnums: Tuple[int, ...] = ()
 
 
 def _loss_and_grads(model, params, batch
@@ -86,3 +118,136 @@ def make_train_step(model, cfg, opt_cfg: AdamConfig,
         return out, {"loss": loss, "gnorm": gnorm, **metrics}
 
     return train_step
+
+
+def train_cell(cfg, shape: ShapeSpec, mesh, mode: Optional[str] = None,
+               microbatch: int = 1) -> CellProgram:
+    """A training step of ``shape`` (kind train). The state's ``step`` and
+    the Adam ``count`` are Python ints, as ``make_train_step`` keeps them."""
+    model = build_model(cfg)
+    mode = mode or shd.ARCH_MODE.get(cfg.name, "tp")
+    opt_cfg = TRAIN_OPT[mode]
+    pshapes = sp.param_shapes(model, cfg)
+    state_shapes = {"params": pshapes, "opt": adam_init(pshapes, opt_cfg),
+                    "step": 0}
+    bshapes = sp.batch_shapes(cfg, shape)
+    pspec = shd.param_spec_tree(pshapes, cfg, mesh, mode)
+    # moments mirror params: same shapes => same specs
+    state_spec = {"params": pspec, "opt": shd.opt_spec_tree(None, pspec),
+                  "step": shd.P()}
+    bspec = shd.batch_spec_tree(bshapes, cfg, mesh)
+    return CellProgram(
+        name=f"{cfg.name}:{shape.name}" + (
+            f":mb{microbatch}" if microbatch > 1 else ""),
+        fn=make_train_step(model, cfg, opt_cfg, microbatch=microbatch),
+        args=(state_shapes, bshapes),
+        in_shardings=(state_spec, bspec),
+        out_shardings=(state_spec, None),
+        donate_argnums=(0,),
+    )
+
+
+# ------------------------------------------------------------------ serve
+def make_prefill_step(model, cfg, backend: str = "auto",
+                      logits: bool = False) -> Callable:
+    """``prefill_step(params, tokens, cache, extra=None) -> (next token
+    (B, 1) int32, cache)``: the prompt through the deploy forward, the
+    cache filled in place; ``extra`` is whisper's frames or phi-3's patch
+    embeddings. ``backend="torch"`` runs the kernels' plain versions;
+    ``logits=True`` also returns the (B, 1, V) logits."""
+
+    def prefill_step(params, tokens, cache, extra=None):
+        ctx = QuantCtx(mode="deploy", backend=backend)
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                h, cache = model.prefill(params, tokens, extra, cache, ctx)
+            elif cfg.family == "vlm":
+                h, cache = model.prefill(params, tokens, cache, ctx,
+                                         extra_embeds=extra)
+            else:
+                h, cache = model.prefill(params, tokens, cache, ctx)
+            out = h @ _head(model, params, cfg)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)
+        return (tok, cache, out) if logits else (tok, cache)
+
+    return prefill_step
+
+
+def _head(model, params, cfg):
+    w = model.lm_head(params) if hasattr(model, "lm_head") else \
+        params["lm_head"]
+    return w.to(getattr(torch, cfg.dtype)) * cfg.logit_mult
+
+
+def make_serve_step(model, cfg, backend: str = "auto",
+                    logits: bool = False) -> Callable:
+    """One decode step, ``serve_step(params, token, cache, pos) -> (next
+    token (B, 1) int32, cache)``: insert ``token`` (B, 1) at ``pos`` (an
+    int or a 0-d int tensor), attend against the cache (written in place),
+    take the argmax; ``logits=True`` also returns the (B, 1, V) logits."""
+    del cfg
+
+    def serve_step(params, token, cache, pos):
+        ctx = QuantCtx(mode="deploy", backend=backend)
+        with torch.no_grad():
+            out, cache = model.decode_step(params, token, cache, pos, ctx)
+        tok = torch.argmax(out[:, -1:], dim=-1).to(torch.int32)
+        return (tok, cache, out) if logits else (tok, cache)
+
+    return serve_step
+
+
+def serve_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
+               mode: Optional[str] = None, kv: str = "bf16") -> CellProgram:
+    model = build_model(cfg)
+    mode = mode or shd.serve_mode(cfg.name)
+    pshapes = sp.param_shapes(model, cfg)
+    if weights in ("int8", "int4"):
+        pshapes = sp.quantize_param_shapes(pshapes, cfg,
+                                           bits=8 if weights == "int8" else 4)
+    cshapes = sp.cache_shapes(model, cfg, shape, kv=kv)
+    pspec = shd.param_spec_tree(pshapes, cfg, mesh, mode)
+    cspec = shd.cache_spec_tree(cshapes, cfg, mesh)
+    B = shape.global_batch
+    dp = shd.dp_axes(mesh)
+    b_ax = dp if B % shd.axis_size(mesh, dp) == 0 else (
+        ("data",) if B % shd.axis_size(mesh, "data") == 0 else None)
+    tok_spec = shd.P(b_ax, None)
+    name = f"{cfg.name}:{shape.name}:{weights}"
+
+    if shape.kind == "decode":
+        return CellProgram(
+            name=name,
+            fn=make_serve_step(model, cfg),
+            args=(pshapes, sp.sds((B, 1), torch.int32), cshapes,
+                  sp.sds((), torch.int32)),
+            in_shardings=(pspec, tok_spec, cspec, shd.P()),
+            out_shardings=(tok_spec, cspec),
+            donate_argnums=(2,),
+        )
+
+    bshapes = sp.batch_shapes(cfg, shape)
+    extra = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+    args = (pshapes, bshapes["tokens"], cshapes)
+    in_sh = (pspec, tok_spec, cspec)
+    if extra is not None:
+        args += (bshapes[extra],)
+        in_sh += (shd.P(b_ax, None, None),)
+    return CellProgram(
+        name=name,
+        fn=make_prefill_step(model, cfg),
+        args=args,
+        in_shardings=in_sh,
+        out_shardings=(tok_spec, cspec),
+        donate_argnums=(2,),
+    )
+
+
+def build_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
+               mode: Optional[str] = None, microbatch: int = 1,
+               kv: str = "bf16") -> CellProgram:
+    """The cell program of (``cfg`` x ``shape``) on ``mesh``; ``weights``
+    and ``kv`` apply to serve cells only."""
+    if shape.kind == "train":
+        return train_cell(cfg, shape, mesh, mode, microbatch=microbatch)
+    return serve_cell(cfg, shape, mesh, weights, mode, kv=kv)

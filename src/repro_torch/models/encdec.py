@@ -290,12 +290,19 @@ class EncDecLM:
                 cache, ctx):
         """Encode ``frames`` (B, enc_len, D), run the decoder over
         ``tokens`` (B, S) and fill ``cache`` in place: the self cache's
-        first S positions and the whole cross cache. Returns (last hidden
-        (B, 1, D), cache)."""
+        first S positions and the whole cross cache. A cross cache of
+        another length than the frames' is replaced by one of theirs, as
+        the reference's prefill replaces it. Returns (last hidden (B, 1, D),
+        cache)."""
         enc_out = self.encode(params, frames, ctx)
         x, kvs = self.decode_full(params, tokens, enc_out, ctx, collect=True)
         S = tokens.shape[1]
         quant = "k_scale" in cache
+        S_enc = enc_out.shape[1]
+        for nm in ("xk", "xv") + (("xk_scale", "xv_scale") if quant else ()):
+            c = cache[nm]
+            if c.shape[2] != S_enc:
+                cache[nm] = c.new_empty(c.shape[:2] + (S_enc,) + c.shape[3:])
         for li, ((sk, sv), (xk, xv)) in enumerate(kvs):
             for nm, t, sl in (("k", sk, slice(0, S)), ("v", sv, slice(0, S)),
                               ("xk", xk, slice(None)), ("xv", xv, slice(None))):

@@ -55,7 +55,11 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.analysis.graph_checks",
                "repro_torch.analysis.intervals",
                "repro_torch.analysis.shardcheck",
-               "repro_torch.analysis.memcheck")
+               "repro_torch.analysis.memcheck",
+               "repro_torch.launch.specs", "repro_torch.roofline",
+               "repro_torch.roofline.analytic",
+               "repro_torch.roofline.analysis",
+               "repro_torch.roofline.report")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
