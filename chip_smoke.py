@@ -139,8 +139,8 @@ printed):
               its own sum before and the export-only run's sum. Request 0
               is re-run with the plain versions (5e-2 relative L2).
    Auto-bits — the trained phase's launcher command plus ``--auto-bits
-              4.5`` (avg_bits budget, combined objective, AUTO_ITERS = 100
-              iterations), ``--resume-dir`` and ``--serve``: the sensitivity
+              4.5`` (avg_bits budget, combined objective, AUTO_ITERS = 50
+              iterations: 100 until the dry-run phase took the seconds), ``--resume-dir`` and ``--serve``: the sensitivity
               probe (every site at 2, 3, 4 and 8 bits; its body captured
               once per apply_key and bit width and replayed per site),
               the solver, the emitted rules over the recipe's, the
@@ -167,7 +167,7 @@ printed):
               non-parametric LayerNorm: no norm keys in its tree), bf16,
               weights from torch.Generator seed 0, through the launcher in
               process with the trained phase's command (W4 body, W8 layers
-              0 and 15, A8, QDrop, TRAIN_ITERS iterations, --resume-dir,
+              0 and 15, A8, QDrop, OLMO_ITERS = 50 iterations, --resume-dir,
               --serve). Counters zeroed before and read after, split where
               serving starts: the export must launch K1 and K3, serving K1
               and K2; the error sum must fall below its start. Then the
@@ -243,7 +243,7 @@ printed):
               the encoder output baked into every decoder block sets).
               Block 0's 20 iterations graphed against graphs=False, bit for
               bit; then, counters zeroed before and read after, all 24
-              decoder blocks at WHISPER_ITERS = 60 through the captured engine
+              decoder blocks at WHISPER_ITERS = 40 through the captured engine
               (the error sum must fall; the export must launch K1 in the
               mma regime and K3) and uniform-batch serving (batch 4, 16
               prompt tokens, 16 greedy steps over 1504 frames) with the
@@ -324,8 +324,9 @@ printed):
               max_memory_allocated.
 13. Mesh    — data-parallel calibration (run after the auto-bits phase).
               (a) An NCCL group of one rank in process: smollm-135m at full
-              width, ``MESH_LAYERS`` = 6 of its 30 layers (W8 layers 0 and
-              5; all 30 until the cells phase took the seconds), through
+              width, ``MESH_LAYERS`` = 3 of its 30 layers (W8 layers 0 and
+              2; all 30 until the cells phase took the seconds, 6 until
+              the dry-run phase did), through
               ``quantize_blocks`` with the
               launcher's recipe at ``MESH_ITERS`` = 12 iterations, graphed,
               under ``make_flat_mesh(1)`` and without a mesh: finalized
@@ -370,7 +371,7 @@ printed):
               torch.Generator seed 0; quantized weights as random codes,
               scales and zeros; decode caches drawn whole):
               smollm-135m at full size ``train_4k`` (16 x 4096, 1 warm +
-              3 timed steps), ``prefill_32k`` int8 (2 x 32768: K2 at M =
+              1 timed step; 3 until the dry-run phase took the seconds), ``prefill_32k`` int8 (2 x 32768: K2 at M =
               65,536; its plain run first, then 1 timed) and ``decode_32k`` (8 x 32768, 1 warm + 10 timed
               steps at the cache's last positions) with bf16, int8 and
               int4 weights over a bf16 cache and int4 over an int8 one,
@@ -390,6 +391,49 @@ printed):
               (device-busy share, device ops a step, host syncs, top 5).
               Every K1/K2 shape the cells gave is held against the plain
               version (``check_path_shapes``).
+
+15. Dry run — ROADMAP item 14.2 on the card's machine. (a) The production
+              cells ``DRY_CELLS`` (smollm-135m at full size: ``train_4k``,
+              ``prefill_32k`` int8 and ``decode_32k`` int8 on 16 x 16 and
+              2 x 16 x 16; llama4-scout-17b-a16e at full size
+              ``train_4k`` on 16 x 16: fsdp, the MoE's hints) traced by
+              ``launch.dryrun.run_cell`` on fake process groups of 256 and
+              512 ranks, in child processes on the host
+              (``chip_smoke.py --dryrun-child OUT CELL...``, three, one
+              thread each, at the lowest priority, stopped while the
+              mesh phase's 8 ranks run) started after the kernels phase
+              and read at the end:
+              each cell prints its trace seconds, peak GiB per device,
+              collective bytes by kind, the three roofline terms on the
+              card's row and the bottleneck, then ``roofline.report``'s
+              summary and table. (b) The traced programs on 2 ranks of
+              the card (``chip_smoke.py --sharded-child DIR`` under
+              torchrun; gloo, NCCL refusing two ranks on one device),
+              ``SHARDED_RUNS`` at ``SHARDED_LAYERS`` = 4 layers and full
+              width: smollm-135m's ``decode_32k`` int8 (the cells phase's
+              8 x 32768) on (1, 2), its ``train_4k`` (16 x 4096, dp,
+              float32) on (2, 1), olmo-1b's ``train_4k`` (4 x 4096, tp,
+              float32) on (1, 2). Each is traced beside part (a) (a fake
+              group of 2, ``--sharded-trace-child``); a cell whose trace
+              holds a collective gloo cannot carry on CUDA tensors (any
+              but all-reduce: ``GLOO_CUDA``) is named and runs at world 1
+              only, and at least one dp and one tp cell must run on the
+              2 ranks. Every cell runs as the plain cell program and on
+              an NCCL world of one (a (1, 1) CUDA mesh: K2 on its shard,
+              the main path of this phase) in process: decode tokens
+              equal but for the plain run's near-ties, each cache entry
+              within ``SHARDED_CACHE_ATOL`` + ``SHARDED_CACHE_RTOL`` of the
+              largest magnitude; the 2-rank train cells' loss and
+              gradient norm within ``SHARDED_LOSS_TOL`` of the world of
+              one's, and its of the plain program's; on each rank the
+              collectives ``CommDebugMode`` counts equal, kind by kind,
+              the trace's. The world of one's decode kernel shapes and
+              rank 0's of the 2-rank runs are held against their plain
+              versions. Then ``_on_shards``' rules on the card
+              (``shard_rule_check``): each K2 shape of that decode with
+              its weight split on N and on K over a (1, 2) CUDA mesh of
+              a fake group, as rank 0 and as rank 1, the local product
+              against the plain version on the rank's halves.
 
 Every phase logs its seconds. The line before the last is the JSON kernel
 summary (K1-K5, launches per path); the last line
@@ -433,6 +477,7 @@ QWEN_2D = ((5120, 13824), (13824, 5120))
 QWEN_LAYERS = 4  # of 48: 5.3 GB of bf16 weights, 1.56 GB of them the
                  # untied embedding and head
 OLMO_LAST = 15   # olmo-1b's last layer, W8 in its launcher run
+OLMO_ITERS = 50  # TRAIN_ITERS until the dry-run phase took the seconds
 # deepseek-v3-671b: 4 of 61 layers (the 3 leading dense layers and 1 MoE
 # layer: 30.2 GB of bf16 weights); its 2-D sites (MLA's wq_a, wq_b, wkv_a,
 # wkv_b, wo; the dense MLP; the shared expert) and expert stacks
@@ -455,10 +500,10 @@ WHISPER_CALIB = 16  # calibration samples = the minibatch: the encoder output
                     # baked into every decoder block holds all of them
 WHISPER_EXPORT_M = WHISPER_CALIB * 64  # rows of the export's decoder sites
 WHISPER_BLOCK0_ITERS = 20  # block 0, graphed against graphs=False
-# all 24 decoder blocks; 100 until the cells phase needed the seconds
-# (on an H100 at 100 the error sum fell 2.396 -> 1.203, each W4 block's to
-# under half by then)
-WHISPER_ITERS = 60
+# all 24 decoder blocks; 100 until the cells phase needed the seconds, 60
+# until the dry-run phase did (on an H100 at 100 the error sum fell 2.396
+# -> 1.203, each W4 block's to under half by then)
+WHISPER_ITERS = 40
 WHISPER_SERVE = (4, 16, 16)  # batch, prompt tokens, greedy steps
 # mamba2-130m: in_proj (768, 3352), whose N % 16 = 8 sends K1/K2/K3 down
 # their scalar code loads with a last N tile of 24 columns; out_proj
@@ -529,7 +574,7 @@ PREEMPT_AT = 10
 # the auto-bits phase: the launcher's --auto-bits budget (numel-weighted
 # average bits), iterations per block, and the budget of its refused resume
 AUTO_BITS = "4.5"
-AUTO_ITERS = TRAIN_ITERS
+AUTO_ITERS = 50  # TRAIN_ITERS until the dry-run phase took the seconds
 AUTO_BITS_OTHER = "4.0"
 # checkpoints and exports of the launcher phases (under build/, gitignored)
 RUNS_DIR = ROOT / "build" / "chip_smoke_runs"
@@ -1446,7 +1491,8 @@ def analysis_mesh_check(torch):
            str(ANALYSIS_MESH_RANKS), "--master-addr", "localhost",
            "--master-port", str(_free_port()), str(ROOT / "chip_smoke.py"),
            "--analysis-mesh-child", str(d)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONFAULTHANDLER="1")
     t0 = time.perf_counter()
     with open(d / "torchrun.log", "w") as fh:
         proc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
@@ -2984,7 +3030,7 @@ def olmo_phase(torch, np):
     16 KV heads, d_ff 8192, vocab 50304, untied head, non-parametric
     LayerNorm, bfloat16) through the launcher, in process: the trained
     phase's command (``launcher_argv``: W4 body, W8 layers 0 and 15, A8,
-    QDrop, TRAIN_ITERS iterations, per-block checkpoints, ``--serve``).
+    QDrop, OLMO_ITERS iterations, per-block checkpoints, ``--serve``).
     Counters zeroed before the call and read after it (split where serving
     starts): the export must launch K1 and K3, serving K1 and K2. The error
     sum must fall below its start. Then the export serves the 8 requests of
@@ -2993,7 +3039,7 @@ def olmo_phase(torch, np):
     from repro_torch.core.context import QuantCtx
     from repro_torch.kernels import ops
 
-    argv = launcher_argv(TRAIN_ITERS, "olmo-1b", OLMO_LAST) + [
+    argv = launcher_argv(OLMO_ITERS, "olmo-1b", OLMO_LAST) + [
         "--resume-dir", str(RUNS_DIR / "olmo_ckpt"),
         "--out", str(RUNS_DIR / "olmo_export"), "--serve"]
     log("olmo: python -m repro_torch.launch.quantize " + " ".join(argv))
@@ -4398,11 +4444,11 @@ def loss_phase(torch, np):
 # -------------------------------------------------------------------- mesh
 MESH_ITERS = 12  # the reference's exact horizon (tests/test_sharded_recon.py)
 MESH_RANKS = 8   # the debug mesh (2, 4): 2 data-parallel ranks x 4 model
-# (a) and (b) take 6 of smollm-135m's 30 layers (W8 layers 0 and 5): full
+# (a) and (b) take 3 of smollm-135m's 30 layers (W8 layers 0 and 2): full
 # width, so every kernel shape, engine and collective of the full depth, a
-# fifth of its blocks (they ran all 30 until the cells phase needed the
-# seconds)
-MESH_LAYERS = 6
+# tenth of its blocks (they ran all 30 until the cells phase needed the
+# seconds, 6 until the dry-run phase did)
+MESH_LAYERS = 3
 MESH_BACKEND = "nccl"  # the in-process group of one rank
 # The 8 ranks against one process (PERF.md §6). Float summation
 # order differs, and Adam's first steps turn a near-zero gradient's sign
@@ -4930,7 +4976,8 @@ def mesh_moe_check(torch, np):
            str(MOE_MESH_RANKS), "--master-addr", "localhost", "--master-port",
            str(_free_port()), str(ROOT / "chip_smoke.py"), "--moe-mesh-child",
            str(d)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONFAULTHANDLER="1")
     t0 = time.perf_counter()
     with open(d / "torchrun.log", "w") as fh:
         proc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
@@ -5002,7 +5049,7 @@ def mesh_moe_check(torch, np):
 # plain run goes first and warms what the two runs share (a prefill takes
 # ~11 s on an H100: PERF.md). CELL_TOL: the plain re-runs' relative L2, as
 # every path's
-CELLS = (("smollm-135m", "train_4k", "bf16", "bf16", 1, 3),
+CELLS = (("smollm-135m", "train_4k", "bf16", "bf16", 1, 1),
          ("smollm-135m", "prefill_32k", "int8", "bf16", 0, 1),
          ("smollm-135m", "decode_32k", "bf16", "bf16", 1, 10),
          ("smollm-135m", "decode_32k", "int8", "bf16", 1, 10),
@@ -5297,6 +5344,609 @@ def mesh_phase(torch, np, rows):
                     "production": production, "moe": moe}
 
 
+# ---------------------------------------------------------------- dry run
+# (a): the production cells, full size, traced on fake process groups in
+# three child processes on the host (they need no card; more slow the
+# host-bound phases), at the lowest priority, started after the kernels
+# phase and read at the end
+DRY_CELLS = (("smollm-135m", "train_4k", False), ("smollm-135m", "train_4k", True),
+             ("smollm-135m", "prefill_32k", False),
+             ("smollm-135m", "prefill_32k", True),
+             ("smollm-135m", "decode_32k", False),
+             ("smollm-135m", "decode_32k", True),
+             ("llama4-scout-17b-a16e", "train_4k", False))
+# three children of about equal work, the two prefill traces (the longest:
+# 348-490 s each on the card's host) apart
+DRY_GROUPS = ((2, 4, 5), (3, 0), (1, 6))
+DRY_WEIGHTS = "int8"
+# the children's files: beside RUNS_DIR, which the phases empty between them
+DRY_DIR = ROOT / "build" / "chip_smoke_dryrun"
+# (b): the traced programs on 2 ranks of the card (gloo: NCCL refuses two
+# ranks on one device), 4 layers at full width: smollm-135m's decode cell
+# (int8 weights: K2 on local shards; the cells phase's shape, the batch
+# over 16) on (1, 2), its train cell (dp) on (2, 1), olmo-1b's train cell
+# (tp: 16 heads divide the model axis) at 4 x 4096 on (1, 2); the train
+# cells' models in float32, so the sides agree to float order. Gloo
+# carries all-reduce on CUDA tensors and nothing else this needs: its
+# all_gather_into_tensor on CUDA tensors ends the process (SIGSEGV in the
+# wait, on an H100 with torch 2.11); a cell whose trace holds another kind
+# runs at world 1 only, and the CPU ranks of
+# tests/test_torch_sharded_cells.py hold it
+SHARDED_LAYERS = 4
+SHARDED_RANKS = 2
+SHARDED_RUNS = {"decode": ("smollm-135m", (1, 2)),
+                "train_dp": ("smollm-135m", (2, 1)),
+                "train_tp": ("olmo-1b", (1, 2))}
+GLOO_CUDA = ("all-reduce",)
+# per entry, of the largest magnitude (the CPU ranks' bound): one token
+# written to a wrong slot or lost is far beyond it
+SHARDED_CACHE_ATOL = SHARDED_CACHE_RTOL = 1e-5
+SHARDED_LOSS_TOL = 1e-5     # relative, float32 loss and gradient norm
+LIMIT_S = 1200.0  # the whole script's limit: the children's waits end before
+T_START = time.perf_counter()
+
+
+def dryrun_child(out_path: str, cells) -> int:
+    """One dry-run child: ``launch.dryrun.run_cell`` of each ``arch:shape:
+    multi_pod`` cell on the fake group of its mesh; the records and the
+    child's CPU seconds into ``out_path``."""
+    import os
+    os.nice(19)  # the host's spare cycles: the phases on the card come first
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_layout
+    todo = [(a, s, m == "1") for a, s, m in (c.split(":") for c in cells)]
+    recs = []
+    for mp in (False, True):
+        mine = [c for c in todo if c[2] == mp]
+        if not mine:
+            continue
+        with dryrun.fake_world(math.prod(
+                mesh_layout("production", multi_pod=mp)[0])):
+            for arch, shape, _ in mine:
+                recs.append(dryrun.run_cell(arch, shape, multi_pod=mp,
+                                            weights=DRY_WEIGHTS))
+                Path(out_path).write_text(json.dumps(
+                    {"records": recs, "cpu_s": time.process_time()}))
+    return 0
+
+
+_CHILDREN = []
+
+
+def _stop_children():
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@contextlib.contextmanager
+def children_paused():
+    """The dry-run children stopped (SIGSTOP) for the block and continued
+    after: the mesh phase runs 8 ranks on the host's 8 cores, which even
+    niced children slow by half (the children have time to spare)."""
+    import signal
+    live = [p for p in _CHILDREN if p.poll() is None]
+    for p in live:
+        p.send_signal(signal.SIGSTOP)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        for p in live:
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+        log(f"dry run: {len(live)} children paused for "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def dryrun_start():
+    """Start part (a)'s children (one thread each, CUDA visible so the
+    meshes are CUDA meshes of fake tensors); returns their handles."""
+    import atexit
+    import os
+    d = DRY_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    handles = []
+    for i, group in enumerate(DRY_GROUPS):
+        cells = [f"{a}:{s}:{int(mp)}" for a, s, mp in
+                 (DRY_CELLS[j] for j in group)]
+        fh = open(d / f"child{i}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             str(d / f"child{i}.json")] + cells, stdout=fh,
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        _CHILDREN.append(p)
+        handles.append((p, d / f"child{i}.json", d / f"child{i}.log", fh))
+    fh = open(d / "sharded_trace.log", "w")
+    p = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-trace-child",
+         str(d / "sharded_trace.json")], stdout=fh, stderr=subprocess.STDOUT,
+        env=env, cwd=str(ROOT))
+    _CHILDREN.append(p)
+    atexit.register(_stop_children)
+    log(f"dry run: {len(DRY_CELLS)} cells started in {len(handles)} child "
+        "processes on the host, part (b)'s traces in one more")
+    return {"handles": handles, "t0": time.perf_counter(),
+            "sharded_trace": (p, d / "sharded_trace.json",
+                              d / "sharded_trace.log", fh)}
+
+
+def dryrun_finish(started, timeout: float = 240.0):
+    """Part (a)'s end: wait for the children (at most ``timeout`` seconds,
+    and never past ``LIMIT_S`` less a margin), print each cell and the
+    report's table; fail unless every cell traced with all three terms."""
+    from repro_torch.roofline import report
+    t_wait = time.perf_counter()
+    timeout = min(timeout, _left(30.0))
+    recs, cpu_s = [], [started["trace_cpu_s"]]
+    for handle in started["handles"]:
+        res = _wait_child(handle, max(
+            timeout - (time.perf_counter() - t_wait), 1.0), "dry run")
+        recs += res["records"]
+        cpu_s.append(res["cpu_s"])
+    waited = time.perf_counter() - t_wait
+    for r in recs:
+        if r["status"] != "ok":
+            fail(f"dry run: {r['cell']}: {r.get('error', r.get('reason'))}")
+        a, m = r["analysis"], r["memory"]
+        if a["bottleneck"] not in ("compute", "memory", "collective") or \
+                "collective_s" not in a:
+            fail(f"dry run: {r['cell']} lacks a term: {a}")
+        coll = ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in
+                         a["collective_breakdown"].items() if v)
+        log(f"dry run: {r['cell']} ({r['mesh_device']} mesh): traced in "
+            f"{r['trace_s']:.1f}s, {r['nodes']} nodes; peak "
+            f"{m['peak_bytes_per_device'] / 2**30:.3f} GiB/device (arguments "
+            f"{m['argument_bytes'] / 2**30:.3f}); collectives per device "
+            f"{coll or 'none'}; on {a['card']}: compute {a['compute_s']:.3e}s,"
+            f" memory {a['memory_s']:.3e}s, collective {a['collective_s']:.3e}"
+            f"s -> {a['bottleneck']}")
+    cells = {r["cell"]: r for r in recs}
+    for line in report.summary(cells).splitlines():
+        log(f"dry run: {line}")
+    for line in report.markdown(cells).splitlines():
+        log(f"dry run: {line}")
+    total = time.perf_counter() - started["t0"]
+    log(f"dry run: {len(recs)} cells in {total:.1f}s since the start, "
+        f"{waited:.1f}s of them waited for at the end; the children's CPU "
+        f"seconds {sum(cpu_s):.1f} (" + ", ".join(f"{c:.1f}" for c in cpu_s)
+        + ", the last three part (a)'s), spent beside every phase from the "
+        "analysis phase on but the mesh phase")
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    return {"cells": recs, "seconds": total, "waited_s": waited,
+            "children_cpu_s": cpu_s}
+
+
+def sharded_cell(kind: str):
+    """(cfg, shape, weights, mode, mesh shape) of part (b)'s ``kind``."""
+    from repro_torch.configs import ShapeSpec, get_config
+    arch, mesh = SHARDED_RUNS[kind]
+    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS)
+    if kind == "decode":
+        return cfg, cell_shape("decode_32k"), "int8", None, mesh
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if kind == "train_dp":
+        return cfg, cell_shape("train_4k"), "bf16", "dp", mesh
+    return cfg, ShapeSpec("train_4k", 4096, 4, "train"), "bf16", "tp", mesh
+
+
+def sharded_args(torch, kind: str):
+    """Part (b)'s arguments, the same in every process (drawn on the card
+    from seed 0): the model's init (a train state, or int8 QTensors of
+    drawn codes), drawn tokens and cache; a decode step at the cache's
+    last position."""
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adam import adam_init
+    cfg, shape, weights, mode, _ = sharded_cell(kind)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = build_model(cfg).init(gen, device=DEV)
+    prog = steps.build_cell(cfg, shape, AbstractMesh((1, 1), ("data", "model")),
+                            weights=weights, mode=mode)
+
+    def tokens(meta):
+        return torch.randint(0, cfg.vocab, tuple(meta.shape), generator=gen,
+                             device=DEV, dtype=torch.int32)
+
+    if shape.kind == "train":
+        opt = steps.TRAIN_OPT[mode]
+        return ({"params": params, "opt": adam_init(params, opt), "step": 0},
+                {k: tokens(v) for k, v in prog.args[1].items()})
+    qparams = specs.materialize(prog.args[0], gen, DEV, fill=params)
+    cache = specs.materialize(prog.args[2], gen, DEV)
+    return qparams, tokens(prog.args[1]), cache, shape.seq_len - 1
+
+
+def _on(torch, tree, dev):
+    """``tree``'s tensors (QTensor fields too) on ``dev``."""
+    from repro_torch.launch import specs
+
+    def one(_, t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dev)
+        if hasattr(t, "codes"):
+            return dataclasses.replace(t, **{f: getattr(t, f).to(dev) for f in
+                                             ("codes", "scale", "zero")})
+        return t
+    return specs.map_with_path(one, tree)
+
+
+def run_sharded(torch, kind: str, mesh):
+    """The cell of ``kind`` on ``mesh`` (a ``DeviceMesh``, or None: the
+    plain program of a world of one) over ``sharded_args``. Returns
+    (results on the CPU: a train cell's loss and gradient norm, a decode
+    cell's tokens and cache; eager collective counts by kind, launch
+    counts, seconds)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.core.dist import is_dtensor
+    from repro_torch.roofline.collectives import counts_by_kind
+    cfg, shape, weights, mode, _ = sharded_cell(kind)
+    args = sharded_args(torch, kind)
+    prog = steps.build_cell(
+        cfg, shape, mesh or AbstractMesh((1, 1), ("data", "model")),
+        weights=weights, mode=mode)
+    n = len(prog.in_shardings)
+    if mesh is not None:
+        args = sharding.distribute(mesh, args[:n], prog.in_shardings) + \
+            tuple(args[n:])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CommDebugMode() as comm:
+        out = prog.fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if shape.kind == "train":  # the scalars (all-reduced): no gather
+        out = {k: float(v.full_tensor() if is_dtensor(v) else v)
+               for k, v in out[1].items() if k in ("loss", "gnorm")}
+    else:
+        out = _on(torch, sharding.gather(out), "cpu")
+    return out, counts_by_kind(comm.get_comm_counts()), launches, secs
+
+
+def sharded_trace_child(out_path: str) -> int:
+    """Part (b)'s traces, on the host beside part (a): each cell on a fake
+    group of 2 ranks and a fresh mesh of its shape (CUDA where PyTorch has
+    CUDA, as the ranks' is); its collective counts and the child's CPU
+    seconds into ``out_path``."""
+    import os
+    os.nice(19)
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.collectives import collective_counts
+    out = {}
+    with dryrun.fake_world(SHARDED_RANKS):
+        for kind in SHARDED_RUNS:
+            cfg, shape, weights, mode, mesh = sharded_cell(kind)
+            gm, secs = dryrun.trace_cell(
+                cfg, shape, init_device_mesh(dryrun.mesh_device(), mesh,
+                                             mesh_dim_names=("data", "model")),
+                weights=weights, mode=mode, pos=shape.seq_len - 1)
+            out[kind] = {"counts": collective_counts(gm), "trace_s": secs}
+            Path(out_path).write_text(json.dumps(
+                {"kinds": out, "cpu_s": time.process_time()}))
+    return 0
+
+
+def sharded_child(out_dir: str, kinds) -> int:
+    """One rank of part (b) (under torchrun, gloo on the card): the eager
+    DTensor run of each cell of ``kinds`` on a mesh of its shape, rank 0's
+    K1/K2/K3 shapes recorded (``PathWindow``); rank 0 saves the results."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as meshes
+
+    meshes.init_distributed(torch.device(DEV))
+    rank = dist.get_rank()
+    doc = {"rank": rank, "backend": str(dist.get_backend())}
+    try:
+        for kind in kinds:
+            print(f"[rank {rank}] {kind}: running", flush=True)
+            window = PathWindow(torch) if rank == 0 else None
+            if window is not None:
+                window.start()
+            try:
+                res, eager, launches, secs = run_sharded(
+                    torch, kind, init_device_mesh(
+                        DEV, sharded_cell(kind)[4],
+                        mesh_dim_names=("data", "model")))
+            finally:
+                if window is not None:
+                    window.stop()
+            doc[kind] = {"eager": eager, "launches": launches,
+                         "seconds": secs, "max_memory_allocated":
+                             torch.cuda.max_memory_allocated()}
+            if window is not None:
+                doc[kind]["shapes"] = sorted(window.shapes)
+                torch.save(res, Path(out_dir, f"{kind}.pt"))
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(doc))
+        meshes.shutdown()
+    return 0
+
+
+def _compare_decode(torch, res, ref, where):
+    """(tokens, differing, near-ties, the cache's largest |difference|
+    over its entry's bound) of a decode result against ``ref`` = (tokens,
+    cache, logits)."""
+    (tok, cache), (rtok, rcache, logits) = res, ref
+    n, diff, near = _token_check(tok.to(rtok.device), logits)
+    ca, cb = _flat(cache), _flat(rcache)
+    over = 0.0
+    for k in cb:
+        b = cb[k].float()
+        bound = SHARDED_CACHE_ATOL + SHARDED_CACHE_RTOL * b.abs().max()
+        over = max(over, ((ca[k].float() - b).abs().max() / bound).item())
+    if diff != near or over > 1.0:
+        fail(f"sharded {where}: {diff} of {n} tokens differ ({near} near "
+             f"ties), cache difference {over:.3e} of its bound "
+             f"({SHARDED_CACHE_ATOL} + {SHARDED_CACHE_RTOL} x max)")
+    return n, diff, near, over
+
+
+def _left(margin: float) -> float:
+    """Seconds left of ``LIMIT_S`` since the script started, less
+    ``margin`` (what must still run after the wait), at least 1."""
+    return max(LIMIT_S - margin - (time.perf_counter() - T_START), 1.0)
+
+
+def _wait_child(handle, timeout: float, what: str):
+    p, out, logf, fh = handle
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop_children()
+        fail(f"{what}: a child outlived {timeout:.0f}s of waiting:\n"
+             f"{logf.read_text()[-3000:]}")
+    finally:
+        fh.close()
+    if p.returncode != 0 or not out.exists():
+        fail(f"{what}: a child exited {p.returncode}:\n"
+             f"{logf.read_text()[-3000:]}")
+    return json.loads(out.read_text())
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def sharded_phase(torch, np, rows, started):
+    """Part (b): the plain cell program and the world of one (an NCCL
+    group of one rank, a (1, 1) CUDA mesh) in process, then the cells that
+    gloo can carry on 2 ranks through torchrun, held against both; each
+    rank's ``CommDebugMode`` counts against part (b)'s traces (the trace
+    child). Returns (the world of one's decode launches: K2 on its
+    shard, the main path of this phase; the record)."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+
+    traced = _wait_child(started["sharded_trace"], min(300.0, _left(150.0)),
+                         "sharded traces")
+    started["trace_cpu_s"] = traced["cpu_s"]
+    traced = traced["kinds"]
+    ran = [k for k in SHARDED_RUNS
+           if set(traced[k]["counts"]) <= set(GLOO_CUDA)]
+    refused = {k: sorted(set(traced[k]["counts"]) - set(GLOO_CUDA))
+               for k in SHARDED_RUNS if k not in ran}
+    modes = {sharded_cell(k)[3] or "tp" for k in ran}
+    if not {"dp", "tp"} <= modes:
+        fail(f"sharded: gloo carries no dp and tp cell on the card: ran "
+             f"{ran}, refused {refused}")
+
+    plain = {k: run_sharded(torch, k, None) for k in SHARDED_RUNS}
+    cfg, shape, _, _, _ = sharded_cell("decode")
+    args = sharded_args(torch, "decode")
+    with torch.no_grad():
+        logits = steps.make_serve_step(build_model(cfg), cfg, logits=True)(
+            *args)[2]
+    del args
+    decode_ref = plain["decode"][0] + (logits[:, -1:].float().cpu(),)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group(MESH_BACKEND, init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            **({"device_id": torch.device(DEV, 0)}
+                               if MESH_BACKEND == "nccl" else {}))
+    one_window = PathWindow(torch)
+    try:
+        one = {}
+        for k in SHARDED_RUNS:
+            if k == "decode":
+                one_window.start()
+            one[k] = run_sharded(torch, k, init_device_mesh(
+                DEV, (1, 1), mesh_dim_names=("data", "model")))
+            if k == "decode":
+                one_window.stop()
+    finally:
+        meshes.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = DRY_DIR / "sharded"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(SHARDED_RANKS), "--master-addr", "localhost", "--master-port",
+           str(_free_port()), str(ROOT / "chip_smoke.py"), "--sharded-child",
+           str(d)] + ran
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONFAULTHANDLER="1")
+    t0 = time.perf_counter()
+    with open(d / "torchrun.log", "w") as fh:
+        proc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                              env=env, cwd=str(ROOT), timeout=300)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"sharded: the {SHARDED_RANKS}-rank run of {ran} exited "
+             f"{proc.returncode}:\n{(d / 'torchrun.log').read_text()[-4000:]}")
+    ranks = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(SHARDED_RANKS)]
+    out = {"ran": ran, "refused": refused, "seconds": ranks_s,
+           "traced": traced, "ranks": ranks}
+    for kind in ran:
+        for r in ranks:
+            if r[kind]["eager"] != traced[kind]["counts"]:
+                fail(f"sharded {kind} rank {r['rank']}: CommDebugMode counts "
+                     f"{r[kind]['eager']}, the trace "
+                     f"{traced[kind]['counts']}")
+        res = torch.load(d / f"{kind}.pt", weights_only=False)
+        if kind == "decode":
+            out[kind] = _compare_decode(torch, res, decode_ref,
+                                        "decode, 2 ranks vs plain")
+            continue
+        m, m1, mp = res, one[kind][0], plain[kind][0]
+        rel = {k: _rel(m[k], m1[k]) for k in ("loss", "gnorm")}
+        rel_plain = {k: _rel(m1[k], mp[k]) for k in ("loss", "gnorm")}
+        out[kind] = {"rel": rel, "rel_plain": rel_plain}
+        if max(rel.values()) > SHARDED_LOSS_TOL or \
+                max(rel_plain.values()) > SHARDED_LOSS_TOL:
+            fail(f"sharded {kind}: loss/gnorm apart from the world of one by "
+                 f"{rel}, the world of one from the plain program by "
+                 f"{rel_plain} (tolerance {SHARDED_LOSS_TOL})")
+        log(f"sharded: {SHARDED_RUNS[kind][0]} {kind} (float32, "
+            f"{SHARDED_LAYERS} layers, {sharded_cell(kind)[1].seq_len} x "
+            f"{sharded_cell(kind)[1].global_batch}) on {SHARDED_RANKS} "
+            f"{ranks[0]['backend']} ranks of the card, mesh "
+            f"{SHARDED_RUNS[kind][1]}: loss {float(m['loss']):.6f}, gnorm "
+            f"{float(m['gnorm']):.6f}; relative to the world of one {rel}, "
+            f"the world of one to the plain program {rel_plain}; rank "
+            "seconds " + ", ".join(f"{r[kind]['seconds']:.2f}" for r in ranks)
+            + f" (world of one {one[kind][3]:.2f}s, plain {plain[kind][3]:.2f}"
+            f"s); collectives {traced[kind]['counts']} on each rank = the "
+            f"trace's; peak " + ", ".join(
+                f"{r[kind]['max_memory_allocated'] / 2**30:.2f}"
+                for r in ranks) + " GiB")
+    out["decode_one"] = _compare_decode(torch, one["decode"][0], decode_ref,
+                                        "decode, world of one vs plain")
+    k2 = one["decode"][2]
+    if k2["dequant_matmul_w8"] == 0:
+        fail(f"sharded decode: K2 not launched on the world of one's shard: "
+             f"{k2}")
+    for kind, kinds in refused.items():
+        log(f"sharded: {SHARDED_RUNS[kind][0]} {kind} on "
+            f"{SHARDED_RUNS[kind][1]}: its trace holds {kinds}, which gloo "
+            "cannot carry on CUDA tensors; it ran at world 1 here "
+            "(NCCL, a (1, 1) mesh), on 2 ranks on the CPU in "
+            "tests/test_torch_sharded_cells.py")
+    n, diff, near, over = out["decode_one"]
+    log(f"sharded: smollm-135m decode ({SHARDED_LAYERS} layers, "
+        f"{shape.seq_len} x {shape.global_batch}, int8) on an NCCL world of "
+        f"one: {diff} of {n} tokens differ from the plain program's ({near} "
+        f"near ties), cache difference {over:.3e} of its bound; "
+        f"K2 {k2['dequant_matmul_w8']} launches on its shard, "
+        f"{one['decode'][3]:.2f}s (plain {plain['decode'][3]:.2f}s); the "
+        f"{SHARDED_RANKS}-rank run of {ran} took {ranks_s:.1f}s")
+    window = PathWindow(torch)
+    window.shapes |= one_window.shapes
+    for r in ranks[:1]:
+        for kind in ran:
+            window.shapes |= {tuple(x) for x in r[kind].get("shapes", [])}
+    rows.extend(check_path_shapes(torch, window, rows, "smollm-135m-sharded"))
+    shutil.rmtree(d, ignore_errors=True)
+    out["shard_rules"] = shard_rule_check(
+        torch, sorted(s for s in one_window.shapes
+                      if s[0] == "dequant_matmul_w8"))
+    return k2, out
+
+
+def shard_rule_check(torch, shapes, dev=DEV, backend="kernel"):
+    """``kernels.ops._on_shards`` on the card: for each K2 shape (name, M,
+    K, N, x dtype) in ``shapes``, a drawn int8 weight whose codes a (1, 2)
+    mesh over a fake group of 2 splits on N and then on K (its scale and
+    zero whole, for ``_held`` to cut), this process as rank 0 and then as
+    rank 1. The rank's local product must be placed ``Shard(-1)`` (N) or
+    ``Partial`` (K), launch K2 and agree with the plain version on the
+    rank's halves: x @ W[:, half] and x[:, half] @ W[half]. These launches
+    are no main path's. Returns the largest error over its tolerance."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.analysis.diffcheck import matmul_tol
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    if not shapes:
+        fail("shard rules: the world of one's decode gave K2 no shape")
+    worst, n_calls = 0.0, 0
+    for rank in range(2):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        with dryrun.fake_world(2, rank=rank):
+            mesh = init_device_mesh(dev, (1, 2),
+                                    mesh_dim_names=("data", "model"))
+            for _, M, K, N, xd in shapes:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    getattr(torch, xd))
+                codes = torch.randint(0, 256, (K, N), generator=gen,
+                                      device=dev, dtype=torch.uint8)
+                scale = torch.exp(torch.randn((1, N), generator=gen,
+                                              device=dev) * 0.2) * 0.2 / 255
+                zero = torch.round(torch.rand((1, N), generator=gen,
+                                              device=dev) * 255)
+                qt = QTensor(codes, scale, zero, (K, N), 8, False)
+                for dim, placed in ((1, Shard(1)), (0, Partial())):
+                    n = (N, K)[1 - dim] // 2
+                    half = slice(rank * n, (rank + 1) * n)
+                    local = (codes[:, half] if dim else codes[half])
+                    dcodes = DTensor.from_local(
+                        local.contiguous(), mesh, [Replicate(), Shard(dim)],
+                        run_check=False, shape=codes.shape,
+                        stride=codes.stride())
+                    before = ops.dequant_matmul_w8.launches
+                    got = ops.qtensor_matmul(
+                        x, dataclasses.replace(qt, codes=dcodes),
+                        backend=backend)
+                    launched = ops.dequant_matmul_w8.launches - before
+                    if dim:
+                        xs, plain = x, QTensor(
+                            local.contiguous(), scale[:, half],
+                            zero[:, half], (K, n), 8, False)
+                    else:
+                        xs, plain = x[:, half].contiguous(), QTensor(
+                            local.contiguous(), scale, zero, (n, N), 8,
+                            False)
+                    want = ops.qtensor_matmul(xs, plain, backend="torch")
+                    where = (f"shard rules: K2 {M}x{K}x{N} {xd} split on "
+                             f"{'NK'[1 - dim]}, rank {rank}")
+                    if tuple(got.placements) != (Replicate(), placed) or \
+                            (backend == "kernel" and launched != 1):
+                        fail(f"{where}: placed {tuple(got.placements)}, "
+                             f"{launched} K2 launches")
+                    got = got.to_local()
+                    w = None if x.dtype == torch.bfloat16 else \
+                        plain.scale * (plain.codes.float() - plain.zero)
+                    err = (got.float() - want.float()).abs()
+                    tol = matmul_tol(xs, w, want, plain.shape[0])
+                    if got.shape != want.shape or not bool((err <= tol).all()):
+                        fail(f"{where}: shape {tuple(got.shape)}, max |err| "
+                             f"{err.max().item():.3e} beyond the tolerance")
+                    worst = max(worst, (err / tol).max().item())
+                    n_calls += 1
+    log(f"shard rules: {len(shapes)} K2 shapes of the decode, each split on "
+        f"N and on K, on ranks 0 and 1 of a (1, 2) mesh: {n_calls} local "
+        f"products placed as _on_shards says, each within its tolerance "
+        f"(largest error {worst:.3f} of it)")
+    return {"calls": n_calls, "worst_over_tol": worst}
+
+
 def _timed_row(rows, name):
     t = TIMED[name]
     for r in rows:
@@ -5320,6 +5970,12 @@ def main() -> int:
         return moe_mesh_child(sys.argv[2])
     if len(sys.argv) > 2 and sys.argv[1] == "--analysis-mesh-child":
         return analysis_mesh_child(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "--dryrun-child":
+        return dryrun_child(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--sharded-child":
+        return sharded_child(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--sharded-trace-child":
+        return sharded_trace_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -5358,6 +6014,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = kernels_phase(torch)
     log(f"kernels phase: {time.perf_counter() - t0:.1f}s")
+    dry_started = dryrun_start()  # (a) runs on the host from here on
     t0 = time.perf_counter()
     analysis = analysis_phase(torch)
     log(f"analysis phase: {time.perf_counter() - t0:.1f}s")
@@ -5387,7 +6044,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_counts, mesh = mesh_phase(torch, np, rows)
+    with children_paused():
+        mesh_counts, mesh = mesh_phase(torch, np, rows)
     log(f"mesh phase: {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     gc.collect()
@@ -5445,6 +6103,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cells_counts, cells = cells_phase(torch, np, rows)
     log(f"cells phase: {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded_counts, sharded = sharded_phase(torch, np, rows, dry_started)
+    dry = dryrun_finish(dry_started)
+    log(f"dry-run phase: {time.perf_counter() - t0:.1f}s")
 
     summary = []
     for name in KERNEL_NAMES:
@@ -5462,7 +6126,8 @@ def main() -> int:
                    "mamba2-130m-trained": mb_counts[name],
                    "recurrentgemma-2b-trained": rg_counts[name],
                    "flexround_fake_quant": k4_counts[name],
-                   "cells": cells_counts[name]}
+                   "cells": cells_counts[name],
+                   "smollm-135m-sharded": sharded_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
                  if name == "flexround_quant" else
                  {"M": timed["M"], "K": timed["K"], "N": timed["N"],
@@ -5494,7 +6159,8 @@ def main() -> int:
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
          "deepseek_path": ds_path, "whisper_path": wh_path,
          "mamba_path": mb_path, "recurrentgemma_path": rg_path,
-         "training": training, "loss": loss, "cells": cells}, indent=1))
+         "training": training, "loss": loss, "cells": cells,
+         "sharded": sharded, "dryrun": dry}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -120,8 +120,23 @@ class _Liveness:
         return max(self.boundaries, key=lambda p: p[0] + p[1] * int(length))
 
 
-def _walk(gm, max_len: int) -> _Liveness:
-    """Linear liveness walk of one graph (module docstring)."""
+def _needed(gm) -> set:
+    """The nodes the graph's outputs and side effects need: a node no
+    output, in-place write or collective reads is dead code."""
+    seen, stack = set(), [n for n in gm.graph.nodes
+                          if n.op == "output" or n.is_impure()]
+    while stack:
+        n = stack.pop()
+        if n not in seen:
+            seen.add(n)
+            stack.extend(n.all_input_nodes)
+    return seen
+
+
+def _walk(gm, max_len: int, live_only: bool = False) -> _Liveness:
+    """Linear liveness walk of one graph (module docstring); with
+    ``live_only`` dead code allocates nothing."""
+    needed = _needed(gm) if live_only else None
     nodes = list(gm.graph.nodes)
     index = {n: i for i, n in enumerate(nodes)}
     root = alias_roots(gm)
@@ -145,7 +160,8 @@ def _walk(gm, max_len: int) -> _Liveness:
     owners: Dict[Any, int] = {}
     free_at: Dict[int, List[Any]] = collections.defaultdict(list)
     for i, n in enumerate(nodes):
-        if n.op == "call_function" and root.get(n, n) is n:
+        if n.op == "call_function" and root.get(n, n) is n and (
+                needed is None or n in needed):
             b = _storage_bytes(n.meta.get("val"))
             if b:
                 owners[n] = b
@@ -168,6 +184,51 @@ def _walk(gm, max_len: int) -> _Liveness:
             live_l -= le
             live_r -= _rounded_bytes(o.meta.get("val"))
     return _Liveness(boundaries, (in_f, in_l), peak_r, owners)
+
+
+def graph_memory(gm) -> Dict[str, int]:
+    """Per-device memory of one traced graph as the reference's record of
+    ``compiled.memory_analysis()``: ``argument_bytes`` (the inputs; the
+    graph's constants are not arguments, the walk holds them as it holds
+    the inputs),
+    ``output_bytes`` (each returned storage once), ``alias_bytes`` (the
+    returned storages that are inputs: a cache or state written in place),
+    ``temp_bytes`` (the liveness walk's peak above the inputs and the
+    fresh outputs) and ``peak_bytes_per_device`` = argument + output +
+    temp - alias, the walk's peak; ``largest``: the three largest
+    storages the graph allocates (op, shape, bytes). Dead code allocates
+    nothing: DTensor computes an op's global output metadata on fake
+    tensors of the global shape, which a CUDA mesh's trace records as
+    nodes no output reads (a decode cell's whole cache, 48 GB)."""
+    live = _walk(gm, 0, live_only=True)
+    root = alias_roots(gm)
+    out = next(n for n in gm.graph.nodes if n.op == "output")
+    argument = sum(_tensor_bytes(n.meta["val"]) for n in gm.graph.nodes
+                   if n.op == "placeholder"
+                   and isinstance(n.meta.get("val"), torch.Tensor))
+    output = alias = 0
+    for o in {root.get(n, n) for n in out.all_input_nodes}:
+        val = o.meta.get("val")
+        if o.op == "placeholder":
+            if isinstance(val, torch.Tensor):
+                alias += _tensor_bytes(val)
+                output += _tensor_bytes(val)
+        else:  # a multi-output op (``_foreach_*``) counts all its results
+            output += live.owners.get(o, _storage_bytes(val))
+    peak = live.peak_at(0)
+    temp = max(peak - argument - (output - alias), 0)  # constants count here
+    largest = sorted(live.owners.items(), key=lambda kv: -kv[1])[:3]
+    return {"argument_bytes": argument, "output_bytes": output,
+            "temp_bytes": temp, "alias_bytes": alias,
+            "peak_bytes_per_device": argument + output + temp - alias,
+            "largest": [[str(n.target), _shape_of(n.meta.get("val")), b]
+                        for n, b in largest]}
+
+
+def _shape_of(val):
+    if isinstance(val, (list, tuple)):
+        return [_shape_of(v) for v in val[:2]]
+    return list(val.shape) if isinstance(val, torch.Tensor) else None
 
 
 # --------------------------------------------------------------- carries

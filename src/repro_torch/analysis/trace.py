@@ -243,8 +243,12 @@ def alias_roots(gm) -> Dict[Any, Any]:
         if ret_alias is None:
             continue
         for a, v in _schema_args(n):
-            if a.alias_info is not None and set(a.alias_info.before_set) & \
-                    set(ret_alias.before_set):
+            # a list of views (split, unbind, chunk: ``Tensor(a -> *)``
+            # in, ``Tensor(a)[]`` out) carries its set on the elements
+            if a.alias_info is not None and (set(a.alias_info.before_set) & (
+                    set(ret_alias.before_set)) or (
+                    not ret_alias.before_set
+                    and "*" in a.alias_info.after_set)):
                 nodes = _tensor_nodes(v)
                 if nodes:
                     root[n] = root[nodes[0]]

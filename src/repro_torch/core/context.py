@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lsq, qdrop
+from repro_torch.core.dist import einsum, is_dtensor, unshard_dp
 from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 from repro_torch.core.quant_config import QuantRecipe, SitePlan
 
@@ -171,6 +172,8 @@ class QuantCtx:
     def _weight(self, name: str, w: Any, batch_dims: int) -> torch.Tensor:
         if isinstance(w, QTensor):
             return dequantize_qtensor(w)
+        # FSDP: a DTensor weight whole over the data axes (its experts not)
+        w = unshard_dp(w, keep=tuple(range(batch_dims)))
         if self.mode == "recon" and name in self.wstates:
             plan = self._plan(name, batch_dims)
             return plan.method.apply(w, self.wstates[name], plan.weight)
@@ -216,6 +219,9 @@ class QuantCtx:
             w_eff = self._weight(name, w, batch_dims).to(x_eff.dtype)
             if batch_dims == 0:
                 y = x_eff @ w_eff
+            elif is_dtensor(w_eff):  # per expert on each rank's experts
+                lead = "abcdfgh"[:x_eff.dim() - 3]  # the "..." below
+                y = einsum(f"{lead}eni,eio->{lead}eno", x_eff, w_eff)
             else:
                 y = torch.einsum("...eni,eio->...eno", x_eff, w_eff)
         if b is not None:

@@ -25,10 +25,12 @@ counters, and ``add_launches`` adds such a tally back at every replay.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.core.dist import is_dtensor, local_slices
 from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant_matmul_w4 import (dequant_matmul_batched,
@@ -218,6 +220,95 @@ def _matmul_batched(x3, qt: QTensor, backend: str):
     return dequant_matmul_batched(x3, codes, scale, zero, packed)
 
 
+def _on_shards(x, qt: QTensor, a_state, backend: str):
+    """``qtensor_matmul`` of DTensor weights on each rank's local shard
+    (``local_map``). Per mesh dim, from the codes' placement: N sharded ->
+    x replicated there, the output ``Shard(-1)``; K sharded -> x sharded
+    on its last dim the same way, the output ``Partial()`` (the caller's
+    next op reduces it); E sharded (stacked experts) -> x's expert dim
+    sharded the same way, the output too; replicated -> x as it is (its
+    last dim replicated; a partial sum reduced first when ``a_state``
+    quantizes it), the output as x. ``scale``/``zero`` are sliced
+    to the local columns or experts (a replicated row is sliced in place,
+    no collective). The kernel that serves the shard is the one the local
+    shapes pick, counted on each rank; a launch failure raises."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    codes = qt.codes
+    mesh = codes.device_mesh
+    nb = len(qt.shape) - 2
+    c_k, c_n = codes.dim() - 2, codes.dim() - 1
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    x_last, x_e = x.dim() - 1, x.dim() - 3
+    x_pl, out_pl, s_pl = [], [], []
+    for p, xp in zip(codes.placements, x.placements):
+        if p.is_shard(c_k):
+            x_pl.append(Shard(x_last))
+            out_pl.append(Partial())
+            s_pl.append(Replicate())
+        elif p.is_shard(c_n):
+            x_pl.append(Replicate())
+            out_pl.append(Shard(x_last))
+            s_pl.append(_per(qt.scale, qt.scale.dim() - 1))
+        elif nb and p.is_shard(0):
+            x_pl.append(Shard(x_e))
+            out_pl.append(Shard(x_e))
+            s_pl.append(_per(qt.scale, 0))
+        elif p.is_replicate():
+            # a partial sum goes into the static activation grid whole
+            keep = Replicate() if xp.is_shard(x_last) or (
+                a_state is not None and xp.is_partial()) else xp
+            x_pl.append(keep)
+            out_pl.append(keep)
+            s_pl.append(Replicate())
+        else:
+            raise ValueError(f"qtensor_matmul: no local rule for codes "
+                             f"placed {tuple(codes.placements)}")
+
+    scale_l, zero_l = (_held(t, mesh, s_pl) for t in (qt.scale, qt.zero))
+
+    def local(x_l, codes_l):
+        shape = list(codes_l.shape)
+        if qt.packed:
+            shape[qt.pack_axis] *= 2
+        q_l = dataclasses.replace(qt, codes=codes_l, scale=scale_l,
+                                  zero=zero_l, shape=tuple(shape))
+        return qtensor_matmul(x_l, q_l, a_state=a_state, backend=backend)
+
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(x_pl, tuple(codes.placements)),
+                     device_mesh=mesh, redistribute_inputs=True)(x, codes)
+
+
+def _per(t, dim: int):
+    """``Shard(dim)`` for a per-channel (or per-expert) ``scale``/``zero``,
+    ``Replicate()`` for one broadcast along ``dim``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return Shard(dim) if t.shape[dim] > 1 else Replicate()
+
+
+def _held(t, mesh, want) -> torch.Tensor:
+    """This rank's part of ``t`` (a DTensor, or a plain tensor: whole on
+    every rank) under the placements ``want``, cut from what the rank
+    already holds: a ``Replicate`` held where ``want`` shards is sliced,
+    nothing is gathered."""
+    have = tuple(t.placements) if is_dtensor(t) else ()
+    local = t.to_local() if is_dtensor(t) else t
+    if have == tuple(want):
+        return local
+    held = (local_slices(t.shape, mesh, have) if have
+            else tuple(slice(0, n) for n in t.shape))
+    out = []
+    for h, w in zip(held, local_slices(t.shape, mesh, want)):
+        if w.start < h.start or w.stop > h.stop:
+            raise ValueError(f"qtensor_matmul: a field placed {have} does "
+                             f"not hold its part under {tuple(want)}")
+        out.append(slice(w.start - h.start, w.stop - h.start))
+    return local[tuple(out)]
+
+
 def qtensor_matmul(x, qt: QTensor, *, a_state=None, backend: str = "auto"):
     """x @ dequant(qt), the deploy-mode serving matmul. ``a_state`` is the
     static activation grid ``(a_scale, a_zero)`` from ``lsq.deploy_astate``
@@ -235,8 +326,13 @@ def qtensor_matmul(x, qt: QTensor, *, a_state=None, backend: str = "auto"):
       the caller.
     - more than one batch dim -> dequantized, then a plain product (no
       kernel, as in the reference).
+
+    DTensor fields run the same dispatch on each rank's shards
+    (``_on_shards``); the weight is never gathered.
     """
     global last_kernel
+    if is_dtensor(qt.codes):
+        return _on_shards(x, qt, a_state, backend)
     backend = resolve_backend(backend, x.device)
     n_batch = len(qt.shape) - 2
     if n_batch == 0:

@@ -18,11 +18,15 @@ dim does not divide (granite's 49155 vocab, mamba's fused projection).
 Meshes are read through ``mesh_dim_names`` and ``shape`` only (a
 ``DeviceMesh``, or a stand-in with those two attributes).
 
-``placements(spec, mesh)`` turns a spec into DTensor ``Shard``/
-``Replicate`` placements, one per mesh dim (``named`` maps it over a tree).
-The data-parallel reconstruction reads ``stream_spec`` only; the cell
-programs (``launch.steps.build_cell``) record the others, which act once a
-program runs across ranks (ROADMAP Queue 1 item 14.2).
+``placements(spec, mesh)`` (from ``core.dist``) turns a spec into DTensor
+``Shard``/``Replicate`` placements, one per mesh dim (``named`` maps it
+over a tree), and ``distribute(mesh, tree, spec_tree)`` turns a tree into DTensors on
+those placements: each rank keeps its slice of a real tensor (every rank
+holds the same whole tensor, so no collective moves it), and a stand-in
+(a ``meta`` leaf) becomes a DTensor over an empty local shard, which
+under ``FakeTensorMode`` allocates nothing (the dry run's arguments). The
+data-parallel reconstruction reads ``stream_spec`` only; the cell programs
+(``launch.steps.build_cell``) take their arguments through ``distribute``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import dataclasses
 import re
 from typing import Any, Optional, Tuple
 
+from repro_torch.core.dist import is_dtensor, local_slices, placements
 from repro_torch.core.qtensor import QTensor
 from repro_torch.launch.mesh import axis_size, dp_axes
 
@@ -254,19 +259,6 @@ def stream_spec(n_lead: int, mesh) -> Spec:
 
 
 # ------------------------------------------------------------ placements
-def placements(spec: Spec, mesh) -> tuple:
-    """DTensor placements of ``spec`` on ``mesh``: per mesh dim, ``Shard``
-    of the tensor dim whose entry names it, else ``Replicate``."""
-    from torch.distributed.tensor import Replicate, Shard
-    where = {}
-    for dim, entry in enumerate(spec):
-        names = (entry,) if isinstance(entry, str) else (entry or ())
-        for name in names:
-            where[name] = dim
-    return tuple(Shard(where[a]) if a in where else Replicate()
-                 for a in mesh.mesh_dim_names)
-
-
 def named(mesh, spec_tree) -> Any:
     """``placements`` over a tree of specs."""
     return _map_specs(lambda s: placements(s, mesh), spec_tree)
@@ -281,3 +273,114 @@ def replicated(mesh) -> tuple:
     """Fully replicated placements (the carried rounding, Adam and LSQ
     states, minibatch schedules: what every rank must see identically)."""
     return placements((), mesh)
+
+
+def distribute(mesh, tree: Any, spec_tree: Any) -> Any:
+    """``tree`` as DTensors on ``mesh`` by ``spec_tree`` (QTensors field by
+    field: codes, scale, zero; ints and None pass through). A real leaf
+    keeps a copy of this rank's slice on the mesh's device type (a CPU
+    tree goes to the card slice by slice; the caller's tensor is never
+    written through it); a ``meta`` stand-in gets
+    an empty local shard on the mesh's device type, which is a fake tensor
+    under an active ``FakeTensorMode``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def one(t, spec):
+        if isinstance(t, QTensor):
+            return dataclasses.replace(t, **{
+                f: one(getattr(t, f), getattr(spec, f))
+                for f in ("codes", "scale", "zero")})
+        if isinstance(t, dict):
+            return {k: one(v, spec[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)) and not _is_spec(spec):
+            return type(t)(one(v, sp) for v, sp in zip(t, spec))
+        if not isinstance(t, torch.Tensor):
+            return t
+        pl = placements(spec, mesh)
+        sl = local_slices(t.shape, mesh, pl)
+        if t.is_meta:
+            local = torch.empty(tuple(s.stop - s.start for s in sl),
+                                dtype=t.dtype, device=mesh.device_type)
+        else:
+            part = t[sl]
+            local = torch.empty(part.shape, dtype=t.dtype,
+                                device=mesh.device_type).copy_(part)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=_contiguous(t.shape))
+
+    return one(tree, spec_tree)
+
+
+def gather(tree: Any) -> Any:
+    """``tree`` with every DTensor leaf (QTensor fields too) made whole on
+    every rank (``full_tensor``); other leaves as they are."""
+    def one(t):
+        if isinstance(t, QTensor):
+            return dataclasses.replace(t, **{
+                f: one(getattr(t, f)) for f in ("codes", "scale", "zero")})
+        if isinstance(t, dict):
+            return {k: one(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(one(v) for v in t)
+        return t.full_tensor() if is_dtensor(t) else t
+
+    return one(tree)
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    """Where a DTensor stood in a tree: its mesh, placements and global
+    shape and stride, to rebuild it around a local shard."""
+    mesh: Any
+    placements: tuple
+    shape: tuple
+    stride: tuple
+
+    def wrap(self, local):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False, shape=self.shape,
+                                  stride=self.stride)
+
+
+def to_local_tree(tree: Any, out: list) -> Any:
+    """``tree`` with each DTensor (QTensor fields too) replaced by its
+    ``Slot``, its local shard appended to ``out`` in order."""
+    if is_dtensor(tree):
+        out.append(tree.to_local())
+        return Slot(tree.device_mesh, tuple(tree.placements),
+                    tuple(tree.shape), tuple(tree.stride()))
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{
+            f: to_local_tree(getattr(tree, f), out)
+            for f in ("codes", "scale", "zero")})
+    if isinstance(tree, dict):
+        return {k: to_local_tree(v, out) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_local_tree(v, out) for v in tree)
+    return tree
+
+
+def from_local_tree(tree: Any, shards) -> Any:
+    """``to_local_tree``'s inverse: each ``Slot`` a DTensor over the next
+    shard of the iterator ``shards``."""
+    if isinstance(tree, Slot):
+        return tree.wrap(next(shards))
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{
+            f: from_local_tree(getattr(tree, f), shards)
+            for f in ("codes", "scale", "zero")})
+    if isinstance(tree, dict):
+        return {k: from_local_tree(v, shards) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_local_tree(v, shards) for v in tree)
+    return tree

@@ -22,12 +22,19 @@ serving:
 
 The serve steps run under ``QuantCtx(mode="deploy")``: on the card every
 QTensor linear goes through the CUDA kernels (``kernels/ops``); the step
-builders' ``backend="torch"`` runs their plain versions. A cell program is run
-here on a mesh of one rank only (``mesh.AbstractMesh((1, 1), ("data",
-"model"))``), where every placement is a whole tensor: the caller draws
-real arguments of the stand-ins' shapes (``specs.materialize``) and calls
-``fn``. Running one across ranks, the dry run over the production meshes
-and sharded training are ROADMAP Queue 1 item 14.2.
+builders' ``backend="torch"`` runs their plain versions.
+
+A program built on an ``AbstractMesh`` takes plain tensors: on a world of
+one (``AbstractMesh((1, 1), ("data", "model"))``) every placement is a
+whole tensor, and the caller draws real arguments of the stand-ins' shapes
+(``specs.materialize``). A program built on a ``DeviceMesh`` takes its
+arguments as DTensors on their placements (``sharding.distribute``) and
+runs as a DTensor program on every rank (``_on_mesh``): the models' hints
+keep it local where GSPMD keeps the reference's, the QTensor matmuls run
+the kernels on local shards, and each gradient comes to its parameter's
+placements before the Adam update (``_to_param_placements``). The dry run
+(``launch.dryrun``) traces such programs on a fake process group. The
+training launcher still trains a replicated step (ROADMAP item 14.3).
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core.context import QuantCtx
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import specs as sp
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.core.dist import ambient_mesh, is_dtensor
+from repro_torch.models.common import shard_hint
 from repro_torch.models.model import build_model
 from repro_torch.optim.adam import (AdamConfig, adam_init, adam_update,
                                     tree_leaves, tree_unflatten)
@@ -76,6 +86,81 @@ def _loss_and_grads(model, params, batch
             grads)
 
 
+def _to_param_placements(grads: List[torch.Tensor],
+                         leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient on its parameter's placements: a DTensor gradient
+    arrives ``Partial`` over the axes its batch was split on, and the
+    redistribution is the data-parallel all-reduce (a replicated parameter)
+    or the FSDP reduce-scatter (a sharded one), where GSPMD inserts them for
+    the reference's ``out_shardings``. A plain tensor passes unchanged."""
+    from torch.distributed.tensor import DTensor
+    return [g.redistribute(p.device_mesh, p.placements)
+            if isinstance(g, DTensor) and isinstance(p, DTensor) else g
+            for g, p in zip(grads, leaves)]
+
+
+def _update(grads, opt, params, opt_cfg: AdamConfig):
+    """``adam_update``; on DTensor leaves, on each rank's local shards (the
+    update is elementwise, and DTensor's placement search over each
+    ``_foreach`` op's leaf list takes minutes to trace on a three-axis
+    mesh), with the global norm of ``_sharded_norm``."""
+    leaves = tree_leaves(params)
+    if not leaves or not is_dtensor(leaves[0]):
+        return adam_update(grads, opt, params, opt_cfg)
+    gnorm = _sharded_norm(tree_leaves(grads))
+    new_p, new_opt, _ = adam_update(_locals(grads), _locals(opt),
+                                    _locals(params), opt_cfg, gnorm=gnorm)
+    return (_like(params, new_p), {"mu": _like(opt["mu"], new_opt["mu"]),
+                                   "count": new_opt["count"]}, gnorm)
+
+
+def _locals(tree):
+    """``tree`` with every DTensor leaf replaced by its local shard."""
+    if isinstance(tree, dict):
+        return {k: _locals(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_locals(v) for v in tree)
+    return tree.to_local() if is_dtensor(tree) else tree
+
+
+def _like(dtree, ltree):
+    """The local shards of ``ltree`` as DTensors placed as the leaves of
+    ``dtree`` at the same paths."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dtree, dict):
+        return {k: _like(dtree[k], ltree[k]) for k in dtree}
+    if isinstance(dtree, (list, tuple)):
+        return type(dtree)(_like(d, t) for d, t in zip(dtree, ltree))
+    if is_dtensor(dtree):
+        return DTensor.from_local(ltree, dtree.device_mesh, dtree.placements,
+                                  run_check=False, shape=dtree.shape,
+                                  stride=dtree.stride())
+    return ltree
+
+
+def _sharded_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The global norm of DTensor gradients on their parameters'
+    placements: each rank sums the squares of its shards, one partial sum
+    per distinct placement, reduced over the axes that shard it (one
+    all-reduce each); the norm is the same on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = grads[0].device_mesh
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for g in grads:
+        groups.setdefault(tuple(g.placements), []).append(
+            torch.sum(torch.square(g.to_local().float())))
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for pl, sq in groups.items():
+        part = torch.sum(torch.stack(sq))
+        if any(p.is_shard() for p in pl):
+            part = DTensor.from_local(
+                part, mesh, [Partial() if p.is_shard() else Replicate()
+                             for p in pl], run_check=False).redistribute(
+                mesh, [Replicate()] * mesh.ndim).to_local()
+        total = total + part
+    return torch.sqrt(total)
+
+
 def make_train_step(model, cfg, opt_cfg: AdamConfig,
                     microbatch: int = 1) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; metrics are
@@ -110,8 +195,9 @@ def make_train_step(model, cfg, opt_cfg: AdamConfig,
             grads = [a / microbatch for a in gacc]
             loss = torch.stack(losses).mean()
             metrics = {}
+        grads = _to_param_placements(grads, tree_leaves(params))
         with torch.no_grad():
-            new_params, new_opt, gnorm = adam_update(
+            new_params, new_opt, gnorm = _update(
                 tree_unflatten(params, grads), state["opt"], params, opt_cfg)
         out = {"params": new_params, "opt": new_opt,
                "step": state["step"] + 1}
@@ -166,7 +252,8 @@ def make_prefill_step(model, cfg, backend: str = "auto",
                                          extra_embeds=extra)
             else:
                 h, cache = model.prefill(params, tokens, cache, ctx)
-            out = h @ _head(model, params, cfg)
+            # the vocab whole for the argmax (a hint: plain tensors pass)
+            out = shard_hint(h @ _head(model, params, cfg), "dp")
         tok = torch.argmax(out, dim=-1).to(torch.int32)
         return (tok, cache, out) if logits else (tok, cache)
 
@@ -191,6 +278,7 @@ def make_serve_step(model, cfg, backend: str = "auto",
         ctx = QuantCtx(mode="deploy", backend=backend)
         with torch.no_grad():
             out, cache = model.decode_step(params, token, cache, pos, ctx)
+            out = shard_hint(out, "dp")
         tok = torch.argmax(out[:, -1:], dim=-1).to(torch.int32)
         return (tok, cache, out) if logits else (tok, cache)
 
@@ -198,7 +286,8 @@ def make_serve_step(model, cfg, backend: str = "auto",
 
 
 def serve_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
-               mode: Optional[str] = None, kv: str = "bf16") -> CellProgram:
+               mode: Optional[str] = None, kv: str = "bf16",
+               backend: str = "auto") -> CellProgram:
     model = build_model(cfg)
     mode = mode or shd.serve_mode(cfg.name)
     pshapes = sp.param_shapes(model, cfg)
@@ -218,7 +307,7 @@ def serve_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
     if shape.kind == "decode":
         return CellProgram(
             name=name,
-            fn=make_serve_step(model, cfg),
+            fn=make_serve_step(model, cfg, backend=backend),
             args=(pshapes, sp.sds((B, 1), torch.int32), cshapes,
                   sp.sds((), torch.int32)),
             in_shardings=(pspec, tok_spec, cspec, shd.P()),
@@ -235,7 +324,7 @@ def serve_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
         in_sh += (shd.P(b_ax, None, None),)
     return CellProgram(
         name=name,
-        fn=make_prefill_step(model, cfg),
+        fn=make_prefill_step(model, cfg, backend=backend),
         args=args,
         in_shardings=in_sh,
         out_shardings=(tok_spec, cspec),
@@ -243,11 +332,42 @@ def serve_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
     )
 
 
+def _on_mesh(fn: Callable, mesh) -> Callable:
+    """``fn`` run with ``mesh`` ambient (the models' ``shard_hint``s) and
+    plain tensors built inside the program taken as replicated
+    (``implicit_replication``): the program's DTensor arguments carry the
+    placements, every constant it makes is the same on every rank. The
+    data axes, and all axes, get a flattened mesh now (outside any fake
+    mode; where none has size 1), which DTensor then uses to reduce a sum
+    that is partial over several of them in one collective, as GSPMD does,
+    not one per axis."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for axes in {shd.dp_axes(mesh), tuple(sizes)}:
+        if len(axes) > 1 and all(sizes[a] > 1 for a in axes):
+            mesh[axes]._flatten()
+
+    def on_mesh(*args):
+        from torch.distributed.tensor.experimental import implicit_replication
+        with ambient_mesh(mesh), implicit_replication():
+            return fn(*args)
+
+    return on_mesh
+
+
 def build_cell(cfg, shape: ShapeSpec, mesh, weights: str = "int8",
                mode: Optional[str] = None, microbatch: int = 1,
-               kv: str = "bf16") -> CellProgram:
-    """The cell program of (``cfg`` x ``shape``) on ``mesh``; ``weights``
-    and ``kv`` apply to serve cells only."""
+               kv: str = "bf16", backend: str = "auto") -> CellProgram:
+    """The cell program of (``cfg`` x ``shape``) on ``mesh``; ``weights``,
+    ``kv`` and the kernel ``backend`` apply to serve cells only. On a
+    ``DeviceMesh`` the program
+    runs with the mesh ambient (``_on_mesh``) and takes the arguments as
+    DTensors (``launch.sharding.distribute``); on an ``AbstractMesh`` it
+    takes plain tensors."""
     if shape.kind == "train":
-        return train_cell(cfg, shape, mesh, mode, microbatch=microbatch)
-    return serve_cell(cfg, shape, mesh, weights, mode, kv=kv)
+        prog = train_cell(cfg, shape, mesh, mode, microbatch=microbatch)
+    else:
+        prog = serve_cell(cfg, shape, mesh, weights, mode, kv=kv,
+                          backend=backend)
+    if not isinstance(mesh, AbstractMesh):
+        prog.fn = _on_mesh(prog.fn, mesh)
+    return prog

@@ -26,7 +26,8 @@ reference's ``jax.distributed.initialize`` under ``JAX_COORDINATOR``) each
 rank starts the process group and pins its card
 (``launch.mesh.init_distributed``). As in the reference the step is not
 sharded: every rank trains the same replicated state on the same batches
-(sharded training is ROADMAP Queue 1 item 14.2). Only
+(sharded training through the launcher is ROADMAP Queue 1 item 14.3; the
+cell programs' step runs on DTensors: ``launch.steps.build_cell``). Only
 global rank 0 writes checkpoints, so ranks on one host do not write one
 directory; every rank reads them to resume.
 """

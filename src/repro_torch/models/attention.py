@@ -7,9 +7,12 @@ windows, in float32. The chunked path scans KV chunks with a running
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+
+from repro_torch.models import common
 
 NEG_INF = -1e30
 
@@ -32,7 +35,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Causal self-attention longer than one chunk splits the queries into at
     most four chunks, each against its causal KV prefix, as the reference
-    does (same math, fewer flops)."""
+    does (same math, fewer flops). On DTensors it runs on each rank's
+    shards (``_per_rank``)."""
+    if common.is_dtensor(q):
+        return _per_rank(functools.partial(
+            attention, causal=causal, window=window, q_offset=q_offset,
+            chunk=chunk, kv_len=kv_len), q, k, v)
     Sq, Sk = q.shape[1], k.shape[1]
     if (causal and window == 0 and q_offset == 0 and Sq == Sk
             and kv_len is None and chunk < Sq and Sq % chunk == 0):
@@ -47,6 +55,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.cat(outs, dim=1)
     return _attention_inner(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, chunk=chunk, kv_len=kv_len)
+
+
+def _per_rank(fn, q, k, v):
+    """``fn(q, k, v)`` on DTensors: attention is local to a batch row and a
+    KV head group, so q, k and v take the batch over the data axes and the
+    heads over ``model`` where both head counts divide it (else
+    replicated), and ``fn`` runs on each rank's shards (``local_map``)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    h_ax = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
+    with common.ambient_mesh(mesh):
+        q, k, v = (common.shard_hint(t, "dp", None, h_ax, None)
+                   for t in (q, k, v))
+    return local_map(fn, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _attention_inner(q, k, v, *, causal, window, q_offset, chunk, kv_len):
@@ -88,6 +113,27 @@ def _attention_inner(q, k, v, *, causal, window, q_offset, chunk, kv_len):
     return out.to(q.dtype)
 
 
+def batch_only(q: torch.Tensor) -> torch.Tensor:
+    """A decode query as the caches hold it: the batch over the data axes,
+    the heads replicated (the caches shard the sequence, not the heads,
+    over ``model``). The identity on a plain tensor."""
+    if not common.is_dtensor(q):
+        return q
+    with common.ambient_mesh(q.device_mesh):
+        return common.shard_hint(q, "dp")
+
+
+def softmax_last(s: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax(s, dim=-1)``. A DTensor sharded along its last dim
+    (the scores over a sequence-parallel cache) is normalized by its max
+    and its sum, each reduced over the ranks as a small partial (one
+    all-reduce each): the scores are never gathered."""
+    if not common.is_dtensor(s):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def pos_mask(pos, B: int, Smax: int, window: int, device) -> torch.Tensor:
     """(B, Smax) validity mask for decode; ``pos`` is scalar or (B,)."""
     k_pos = torch.arange(Smax, device=device)
@@ -108,11 +154,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
+    q = batch_only(q)
     qg = q.reshape(B, 1, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * (D**-0.5)
+    s = common.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * (D**-0.5)
     valid = pos_mask(pos, B, Smax, window, q.device)
     s = torch.where(valid[:, None, None, None, :], s,
                     torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    p = softmax_last(s)
+    out = common.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
     return out.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)

@@ -1,7 +1,16 @@
 """Shared model components: norms, RoPE, MLPs, embeddings and the chunked
 cross entropy (port of ``repro/models/common.py``). The reference's
 ``stack_layers`` / ``scan_layers`` become a plain Python loop over a list of
-per-layer dicts in the models."""
+per-layer dicts in the models.
+
+Placement hints (``shard_hint``) and the helpers that keep a ``DTensor``
+program local where GSPMD keeps the reference's local (``split_heads``,
+``merge_heads``, ``put_tokens``, ``local_rows``) act on DTensors only: on a
+plain tensor, or with no mesh ambient, each is what the plain code did, so
+every path of one process runs as before. They build on ``core.dist``'s
+primitives (the ambient mesh, ``is_dtensor``, ``unshard_dp``, ``einsum``),
+which the models reach through this module.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +20,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.context import QuantCtx
+from repro_torch.core.dist import (ambient_mesh, einsum,  # noqa: F401
+                                   get_ambient_mesh, is_dtensor,
+                                   local_slices, placements, unshard_dp)
 
 
 def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -36,7 +48,10 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
 
 
 def apply_norm(kind: str, x: torch.Tensor, p: Optional[dict]) -> torch.Tensor:
-    """kind: rmsnorm | layernorm | layernorm_nonparam (OLMo)."""
+    """kind: rmsnorm | layernorm | layernorm_nonparam (OLMo). Under a mesh
+    the stream comes to the norm whole along its width (a partial sum is
+    reduced there), its rows over the data axes."""
+    x = shard_hint(x, "dp")
     if kind == "rmsnorm":
         return rmsnorm(x, p["scale"] if p else None)
     if kind == "layernorm":
@@ -145,15 +160,26 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
     ``F.embedding``, whose backward sums each row's gradients in a fixed
     order on the CPU; indexing's backward (``index_put_`` with
     ``accumulate=True``) adds them with atomics there, so a training run
-    and its resumed copy would differ in the last bits."""
-    return F.embedding(tokens, embed) * mult
+    and its resumed copy would differ in the last bits. Under a mesh the
+    rows ride the data axes, the width replicated (the stream's placement
+    in every layer)."""
+    return shard_hint(F.embedding(tokens, unshard_dp(embed)), "dp") * mult
 
 
 def _chunk_loss(xb: torch.Tensor, lb: torch.Tensor, mb: torch.Tensor,
                 w_out: torch.Tensor, logit_scale: float):
     logits = (xb.float() @ w_out.float()) * logit_scale
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lb[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the vocab may be sharded: reductions over it, each brought whole
+        # along the model axis at once (no gather of the logits)
+        m = shard_hint(logits.detach().amax(dim=-1, keepdim=True), "dp")
+        se = shard_hint(torch.exp(logits - m).sum(-1, keepdim=True), "dp")
+        lse = (m + torch.log(se))[..., 0]
+        hit = torch.arange(logits.shape[-1], device=lb.device) == lb[..., None]
+        gold = shard_hint(torch.where(hit, logits, 0.0).sum(-1), "dp")
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb[..., None])[..., 0]
     return torch.sum((lse - gold) * mb), torch.sum(mb)
 
 
@@ -168,6 +194,7 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
     backward pass (``torch.utils.checkpoint``), so peak memory is
     O(B * chunk * V) instead of O(B * S * V)."""
     B, S, D = x.shape
+    w_out = unshard_dp(w_out)
     chunk = min(chunk, S)
     n_chunks = S // chunk
     rem = S - n_chunks * chunk
@@ -189,3 +216,136 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
         tot = tot + l
         cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)
+
+
+# ------------------------------------------------------------ placements
+def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Redistribute a DTensor to the placements ``axes`` name on the
+    ambient mesh (the reference's ``with_sharding_constraint`` hint).
+
+    ``axes`` entries: None, a mesh axis name, "dp" (the data, and pod,
+    axes present), or a tuple of names. Axes missing from the mesh
+    degrade to replication, and so does a dim that their size does not
+    divide. The identity on a plain tensor or with no ambient mesh."""
+    mesh = get_ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    spec = []
+    for dim, a in zip(x.shape, axes):
+        if a == "dp":
+            a = tuple(n for n in ("pod", "data") if n in names)
+        elif isinstance(a, str):
+            a = (a,) if a in names else ()
+        elif isinstance(a, tuple):
+            a = tuple(n for n in a if n in names)
+        else:
+            a = ()
+        n = 1
+        for nm in a:
+            n *= sizes[nm]
+        spec.append(a if a and dim % n == 0 else ())
+    spec += [()] * (x.dim() - len(spec))
+    pl = placements(tuple(spec), mesh)
+    y = x.redistribute(mesh, pl)
+    if any(p.is_partial() for p in x.placements):
+        # the gradient comes to these placements before it reaches x:
+        # DTensor turns no partial gradient into x's masked partial (the
+        # vocab-parallel embedding's output)
+        y = y.redistribute(mesh, pl)
+    return y
+
+
+def split_heads(x: torch.Tensor, n_heads: int,
+                head_dim: int) -> torch.Tensor:
+    """(..., n_heads * head_dim) -> (..., n_heads, head_dim). A DTensor
+    whose last dim is sharded over a mesh dim that ``n_heads`` does not
+    divide is first replicated along it: DTensor refuses an uneven
+    unflatten, where XLA pads (smollm-135m's 3 KV heads on 16 model
+    ranks)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        last = x.dim() - 1
+        mesh = x.device_mesh
+        pl = [Replicate() if p.is_shard(last) and n_heads % mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(tuple(x.shape[:-1]) + (n_heads, head_dim))
+
+
+def local_rows(fn, *args, n_out: int = 1):
+    """``fn(*args)`` where each output row depends on the same rows of the
+    inputs only (a sequence scan). On DTensors each tensor argument comes
+    to its rows over the data axes, the rest replicated, and ``fn`` runs on
+    each rank's rows (``local_map``); its ``n_out`` outputs, each
+    batch-leading, take the first tensor argument's placements, and the
+    gradients need no reduction (every rank holding a row computes it
+    whole). Other arguments (ints, None) pass as they are."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    with ambient_mesh(mesh):
+        args = tuple(shard_hint(a, "dp") if is_dtensor(a) else a
+                     for a in args)
+    pl = list(next(a for a in args if is_dtensor(a)).placements)
+    return local_map(
+        fn, out_placements=pl if n_out == 1 else tuple([pl] * n_out),
+        in_placements=tuple(a.placements if is_dtensor(a) else None
+                            for a in args),
+        device_mesh=mesh)(*args)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(..., n_heads, head_dim) -> (..., n_heads * head_dim). A DTensor's
+    gradient comes back in the merged value's placements, so the
+    backward's unflatten never meets a gradient sharded over heads that do
+    not divide a mesh dim (``split_heads``' uneven case)."""
+    y = o.reshape(tuple(o.shape[:-2]) + (o.shape[-2] * o.shape[-1],))
+    if is_dtensor(y):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
+def put_tokens(buf: torch.Tensor, lead: tuple, start: int,
+               val: torch.Tensor) -> None:
+    """``buf[lead + (slice(None), slice(start, start + n))] = val`` in
+    place: ``buf`` is (*lead, B, S, ...), ``val`` (B, n, ...) tokens at
+    the host positions [start, start + n).
+
+    On a DTensor ``buf`` whose S dim is sharded (the sequence-parallel
+    decode caches of ``launch.sharding.cache_spec_tree``) each rank writes
+    the positions it holds into its own shard, as XLA's partitioned
+    dynamic-update-slice does: ``val`` comes to ``buf``'s placements on the
+    other dims (a token is replicated along S; a span that fills S is
+    sharded as ``buf`` is), and the cache is never gathered."""
+    n = val.shape[1]
+    if not is_dtensor(buf):
+        buf[lead + (slice(None), slice(start, start + n))] = val.to(buf.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = buf.device_mesh, buf.placements
+    k = len(lead)
+    s_dim = k + 1
+    whole = start == 0 and n == buf.shape[s_dim]
+    v_pl = []
+    for p in pl:
+        if not p.is_shard() or p.dim < k or (p.dim == s_dim and not whole):
+            v_pl.append(Replicate())
+        else:
+            v_pl.append(Shard(p.dim - k))
+    if not is_dtensor(val):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    val = val.redistribute(mesh, v_pl).to_local()
+    local = buf.to_local()
+    held = local_slices(buf.shape, mesh, pl)[s_dim]
+    lo, hi = held.start, held.stop
+    a, b = max(start, lo), min(start + n, hi)
+    if a >= b:
+        return  # no position of the span on this rank
+    if not whole:
+        val = val[:, a - start:b - start]
+    local[lead + (slice(None), slice(a - lo, b - lo))] = val.to(local.dtype)

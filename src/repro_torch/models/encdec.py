@@ -111,15 +111,16 @@ def _mha(p, xq, xkv, ctx, name, causal, cfg, kv_override=None):
     ``kv_override`` = (k, v)); returns (out, (k, v))."""
     B, Sq, _ = xq.shape
     H, Dh = cfg.n_heads, cfg.head_dim
-    q = ctx.linear(f"{name}.wq", xq, p["wq"], p["bq"]).reshape(B, Sq, H, Dh)
+    q = common.split_heads(ctx.linear(f"{name}.wq", xq, p["wq"], p["bq"]),
+                           H, Dh)
     if kv_override is None:
-        Sk = xkv.shape[1]
-        k = ctx.linear(f"{name}.wk", xkv, p["wk"]).reshape(B, Sk, H, Dh)
-        v = ctx.linear(f"{name}.wv", xkv, p["wv"], p["bv"]).reshape(B, Sk, H, Dh)
+        k = common.split_heads(ctx.linear(f"{name}.wk", xkv, p["wk"]), H, Dh)
+        v = common.split_heads(
+            ctx.linear(f"{name}.wv", xkv, p["wv"], p["bv"]), H, Dh)
     else:
         k, v = kv_override
     o = attn.attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
-    out = ctx.linear(f"{name}.wo", o.reshape(B, Sq, H * Dh), p["wo"], p["bo"])
+    out = ctx.linear(f"{name}.wo", common.merge_heads(o), p["wo"], p["bo"])
     return out, (k, v)
 
 
@@ -128,7 +129,8 @@ def _one_token_attn(p, z, ctx, name, cfg, attend):
     projection: the decode form of ``_mha``."""
     B = z.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
-    q = ctx.linear(f"{name}.wq", z, p["wq"], p["bq"]).reshape(B, 1, H, Dh)
+    q = common.split_heads(ctx.linear(f"{name}.wq", z, p["wq"], p["bq"]),
+                           H, Dh)
     return ctx.linear(f"{name}.wo", attend(q).reshape(B, 1, H * Dh), p["wo"],
                       p["bo"])
 
@@ -217,6 +219,14 @@ class EncDecLM:
             xa = _one_token_attn(
                 p_l["xattn"], z, ctx, f"{name}.xattn", cfg,
                 lambda q: skv.int8_decode_attention(q, *cross_kv, last))
+            xkv = None
+        elif cross_kv is not None and common.is_dtensor(cross_kv[0]):
+            # a sequence-parallel cross cache: the same decode attention
+            # at the last encoder index, which never gathers the cache
+            last = cross_kv[0].shape[1] - 1
+            xa = _one_token_attn(
+                p_l["xattn"], z, ctx, f"{name}.xattn", cfg,
+                lambda q: attn.decode_attention(q, *cross_kv, last))
             xkv = None
         else:
             xa, xkv = _mha(p_l["xattn"], z, enc_out, ctx, f"{name}.xattn",
@@ -332,16 +342,17 @@ class EncDecLM:
         for li, p_l in enumerate(params["dec_layers"]):
             a = p_l["attn"]
             z = common.apply_norm("layernorm", x, p_l["ln1"])
-            k = ctx.linear("dec.attn.wk", z, a["wk"]).reshape(B, 1, H, Dh)
-            v = ctx.linear("dec.attn.wv", z, a["wv"], a["bv"]).reshape(
-                B, 1, H, Dh)
+            k = common.split_heads(ctx.linear("dec.attn.wk", z, a["wk"]),
+                                   H, Dh)
+            v = common.split_heads(
+                ctx.linear("dec.attn.wv", z, a["wv"], a["bv"]), H, Dh)
             for nm, t in (("k", k), ("v", v)):
                 if quant:
                     codes, scl = skv.kv_quantize(t)
-                    cache[nm][li, :, p_i] = codes[:, 0]
-                    cache[f"{nm}_scale"][li, :, p_i] = scl[:, 0]
+                    common.put_tokens(cache[nm], (li,), p_i, codes)
+                    common.put_tokens(cache[f"{nm}_scale"], (li,), p_i, scl)
                 else:
-                    cache[nm][li, :, p_i] = t[:, 0].to(cache[nm].dtype)
+                    common.put_tokens(cache[nm], (li,), p_i, t)
             x = self._dec_layer(p_l, x, None, ctx, "dec",
                                 self_kv=tuple(cache[n][li] for n in self_names),
                                 cross_kv=tuple(cache[n][li]

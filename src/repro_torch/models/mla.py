@@ -66,7 +66,7 @@ def mla_forward(p, x, cfg, ctx: QuantCtx, name, sin, cos):
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = attn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    out = ctx.linear(f"{name}.wo", o.reshape(B, S, H * dv), p["wo"])
+    out = ctx.linear(f"{name}.wo", common.merge_heads(o), p["wo"])
     return out, (ckv, k_rope)
 
 
@@ -84,6 +84,7 @@ def mla_decode(p, x, cfg, ctx: QuantCtx, name, sin, cos, ckv_cache, kr_cache,
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     rkv = cfg.kv_lora_rank
     q_nope, q_rope = _q_proj(p, x, cfg, ctx, name, sin, cos)  # (B,1,H,*)
+    q_nope, q_rope = attn.batch_only(q_nope), attn.batch_only(q_rope)
 
     wkv_b = ctx.get_weight(f"{name}.wkv_b", p["wkv_b"]).reshape(rkv, H, dn + dv)
     w_kb, w_vb = wkv_b[..., :dn].float(), wkv_b[..., dn:].float()
@@ -91,13 +92,13 @@ def mla_decode(p, x, cfg, ctx: QuantCtx, name, sin, cos, ckv_cache, kr_cache,
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_kb)
     ckv32 = ckv_cache.float()
     scale = (dn + dr) ** -0.5
-    s = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv32)
-         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
-                        kr_cache.float())) * scale
+    s = (common.einsum("bqhr,bsr->bhqs", q_abs, ckv32)
+         + common.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                         kr_cache.float())) * scale
     valid = attn.pos_mask(pos, B, ckv_cache.shape[1], 0, x.device)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, attn.NEG_INF))
-    pr = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv32)
+    pr = attn.softmax_last(s)
+    o_lat = common.einsum("bhqs,bsr->bqhr", pr, ckv32)
     o = torch.einsum("bqhr,rhd->bqhd", o_lat, w_vb)
     return ctx.linear(f"{name}.wo", o.reshape(B, 1, H * dv).to(x.dtype),
                       p["wo"])

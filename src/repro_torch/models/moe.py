@@ -10,9 +10,12 @@ deploy mode the stacked (E, d_in, d_out) QTensor experts go to the
 per-expert dequant-matmul kernel (K5), so the stack is never dequantized in
 device memory.
 
-The reference's mesh placement (``shard_hint`` and the expert-axis choice)
-has no counterpart here. The dispatch stays the reference's dense one-hot
-einsum.
+Placement (the reference's six ``shard_hint``s, acting on DTensors under
+an ambient mesh only): the groups ride the data axes and the experts the
+model axis; where E divides data x model the expert buffers take E over
+(data, model) instead (full EP, one expert per rank) and give up the group
+sharding, so the dispatch einsum becomes the all-to-all. The dispatch
+stays the reference's dense one-hot einsum.
 
 **Under data parallelism** (``ctx.rows``, a ``core.context.BatchRows``:
 this rank holds rows [lo, hi) of a global batch) the reference's GSPMD
@@ -106,19 +109,64 @@ def route(p: dict, xt: torch.Tensor, cfg):
     return probs, idx, dispatch, combine
 
 
+def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """einsum("gnec,gnd->gecd") as one batched product over the flattened
+    (E, C) slots, a dim DTensor shards whole (its einsum flattens the
+    letters into a strided shard it cannot multiply). On plain CPU
+    tensors it gives the einsum's bits, gradients included."""
+    G, N, E, C = dispatch.shape
+    return torch.bmm(dispatch.reshape(G, N, E * C).transpose(1, 2),
+                     xt).reshape(G, E, C, xt.shape[-1])
+
+
+def _combine(combine: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
+    """einsum("gnec,gecd->gnd"), on DTensors as ``_dispatch``'s product:
+    the contraction over the slots sharded by experts is a partial sum.
+    Plain tensors keep the einsum, which sums the slots in (C, E) order;
+    the (E, C) order the sharded experts need rounds float32 differently."""
+    if not common.is_dtensor(ye):
+        return torch.einsum("gnec,gecd->gnd", combine, ye)
+    G, N, E, C = combine.shape
+    return torch.bmm(combine.reshape(G, N, E * C),
+                     ye.reshape(G, E * C, ye.shape[-1]))
+
+
+def expert_axes(n_experts: int):
+    """The mesh axes of the expert dim, matching the weights' placement
+    (``launch.sharding``'s expert rule): ``("data", "model")`` (full EP)
+    where E divides data x model of the ambient mesh, else ``"model"``."""
+    e_axes = "model"
+    mesh = common.get_ambient_mesh()
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        full = sizes.get("data", 1) * sizes.get("model", 1)
+        if full > 1 and n_experts % full == 0:
+            e_axes = ("data", "model")
+    return e_axes
+
+
 def _routed(p: dict, x: torch.Tensor, N: int, cfg, ctx: QuantCtx,
             name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts over x (B, S, D) in groups of N tokens: (y, aux)."""
     B, S, D = x.shape
     E = cfg.n_experts
-    xt = x.reshape(B * S // N, N, D)
+    x = common.shard_hint(x, "dp", None, None)  # a view of whole rows
+    xt = common.shard_hint(x.reshape(B * S // N, N, D), "dp", None, None)
     probs, _, dispatch, combine = route(p, xt, cfg)
 
     xd = x.dtype
-    xe = torch.einsum("gnec,gnd->gecd", dispatch.to(xd), xt)  # (G, E, C, D)
+    e_axes = expert_axes(E)
+    g_e = None if isinstance(e_axes, tuple) else "dp"
+    dispatch = common.shard_hint(dispatch, g_e, None, e_axes, None)
+    combine = common.shard_hint(combine, g_e, None, e_axes, None)
+    xe = _dispatch(dispatch.to(xd), xt)  # (G, E, C, D)
+    xe = common.shard_hint(xe, g_e, e_axes, None, None)
     ye = common.mlp(p["experts"], xe, ctx, f"{name}.experts", cfg.act,
                     batch_dims=1)
-    y = torch.einsum("gnec,gecd->gnd", combine.to(xd), ye).reshape(B, S, D)
+    ye = common.shard_hint(ye, g_e, e_axes, None, None)
+    y = _combine(combine.to(xd), ye)
+    y = common.shard_hint(y, "dp", None, None).reshape(B, S, D)
+    y = common.shard_hint(y, "dp", None, None)  # its gradient too
 
     # auxiliary load-balance loss (Switch eq. 4)
     me = torch.mean(probs, dim=(0, 1))  # (E,)

@@ -197,9 +197,9 @@ def recurrent_block_step(p, x, cfg, ctx, name, h_prev, conv_state):
 def _qkv(p, h, cfg, ctx, name, sin, cos):
     B, S, _ = h.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = ctx.linear(f"{name}.wq", h, p["wq"]).reshape(B, S, H, Dh)
-    k = ctx.linear(f"{name}.wk", h, p["wk"]).reshape(B, S, Hkv, Dh)
-    v = ctx.linear(f"{name}.wv", h, p["wv"]).reshape(B, S, Hkv, Dh)
+    q = common.split_heads(ctx.linear(f"{name}.wq", h, p["wq"]), H, Dh)
+    k = common.split_heads(ctx.linear(f"{name}.wk", h, p["wk"]), Hkv, Dh)
+    v = common.split_heads(ctx.linear(f"{name}.wv", h, p["wv"]), Hkv, Dh)
     return (common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos),
             v)
 
@@ -212,7 +212,7 @@ def local_attn_block(p, x, cfg, ctx, name, sin, cos, return_kv=False):
     o = attn.attention(q, k, v, causal=True, window=cfg.local_window,
                        chunk=cfg.attn_chunk)
     out = x + ctx.linear(f"{name}.wo",
-                         o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+                         common.merge_heads(o), p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -230,17 +230,17 @@ def local_attn_block_step(p, x, cfg, ctx, name, sin, cos, k_ring, v_ring,
     h = common.apply_norm("rmsnorm", x, p["ln"])
     q, k, v = _qkv(p, h, cfg, ctx, name, sin, cos)
     slot = pos % W
-    k_ring[:, slot] = k[:, 0].to(k_ring.dtype)
-    v_ring[:, slot] = v[:, 0].to(v_ring.dtype)
+    common.put_tokens(k_ring, (), slot, k)
+    common.put_tokens(v_ring, (), slot, v)
     # fill_ takes pos as a kernel argument; ``kpos_ring[slot] = pos`` would
     # copy a host scalar to the card (and wait for it) on every call
     kpos_ring.narrow(0, slot, 1).fill_(pos)
-    qg = q.reshape(B, 1, Hkv, H // Hkv, Dh).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_ring.float()) * Dh**-0.5
+    qg = attn.batch_only(q).reshape(B, 1, Hkv, H // Hkv, Dh).float()
+    s = common.einsum("bqhgd,bkhd->bhgqk", qg, k_ring.float()) * Dh**-0.5
     valid = (kpos_ring >= 0) & (kpos_ring <= pos) & (kpos_ring > pos - W)
     s = torch.where(valid, s, torch.full_like(s, attn.NEG_INF))
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v_ring.float()).to(x.dtype)
+    pr = attn.softmax_last(s)
+    o = common.einsum("bhgqk,bkhd->bqhgd", pr, v_ring.float()).to(x.dtype)
     out = x + ctx.linear(f"{name}.wo", o.reshape(B, 1, H * Dh), p["wo"])
     return out, k_ring, v_ring, kpos_ring
 
@@ -389,8 +389,14 @@ class GriffinLM:
                 n = min(W, S)
                 positions = torch.arange(S - n, S, device=k.device)
                 slots = positions % W
-                c["k"][:, slots] = k[:, -n:].to(c["k"].dtype)
-                c["v"][:, slots] = v[:, -n:].to(c["v"].dtype)
+                # the last n tokens as the (at most two) spans of slots
+                # they fill: on a DTensor ring each rank writes its slots
+                first = (S - n) % W
+                head = min(n, W - first)
+                for buf, t in ((c["k"], k), (c["v"], v)):
+                    common.put_tokens(buf, (), first, t[:, S - n:S - n + head])
+                    if head < n:
+                        common.put_tokens(buf, (), 0, t[:, S - n + head:])
                 c["kpos"][slots] = positions.to(torch.int32)
         return x[:, -1:], cache
 

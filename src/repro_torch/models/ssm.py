@@ -162,13 +162,22 @@ def layer_forward(p, u: torch.Tensor, cfg, ctx, name: str, init_state=None,
 
     dt = _softplus(dt.float() + p["dt_bias"])  # (B,S,H)
     dA = -torch.exp(p["a_log"]) * dt  # negative log decay
-    y, final_state = ssd_chunked(x * dt[..., None], dA, Bm, Cm,
-                                 cfg.attn_chunk, init_state)
+    y, final_state = common.local_rows(ssd_chunked, x * dt[..., None], dA,
+                                       Bm, Cm, cfg.attn_chunk, init_state,
+                                       n_out=2)
     y = y + p["d_skip"][None, None, :, None] * x
     y = y.reshape(B_, S, d_inner)
     out = _gated_out(p, y, z, u, ctx, name)
     conv_tail = xbc[:, -(cfg.ssm_conv - 1):, :]
     return u + out, (conv_tail, final_state)
+
+
+def _ssm_step(ssm_state, xdt, dA, Bm, Cm):
+    """One token's state update and read-out, each batch row on its own:
+    (state', y without the skip)."""
+    ssm_new = (ssm_state * dA[..., None, None]
+               + torch.einsum("bhp,bn->bhpn", xdt, Bm))
+    return ssm_new, torch.einsum("bhpn,bn->bhp", ssm_new, Cm)
 
 
 def layer_decode(p, u: torch.Tensor, cfg, ctx, name: str,
@@ -185,18 +194,16 @@ def layer_decode(p, u: torch.Tensor, cfg, ctx, name: str,
     xbc_conv = torch.einsum("bkc,kc->bc", window.float(),
                             p["conv_w"].float()) + p["conv_b"]
     xbc_conv = F.silu(xbc_conv)[:, None, :]  # (B,1,conv_dim)
-    x = xbc_conv[..., :d_inner].reshape(B_, n_heads, cfg.ssm_headdim)
+    x = common.split_heads(xbc_conv[:, 0, :d_inner], n_heads, cfg.ssm_headdim)
     Bm = xbc_conv[:, 0, d_inner:d_inner + cfg.ssm_state]
     Cm = xbc_conv[:, 0, d_inner + cfg.ssm_state:]
 
     dt_ = _softplus(dt[:, 0].float() + p["dt_bias"])  # (B,H)
     dA = torch.exp(-torch.exp(p["a_log"]) * dt_)  # (B,H)
-    xdt = x * dt_[..., None]
-    ssm_new = (ssm_state * dA[..., None, None]
-               + torch.einsum("bhp,bn->bhpn", xdt, Bm))
-    y = (torch.einsum("bhpn,bn->bhp", ssm_new, Cm)
-         + p["d_skip"][None, :, None] * x)
-    y = y.reshape(B_, 1, d_inner)
+    ssm_new, y = common.local_rows(_ssm_step, ssm_state, x * dt_[..., None],
+                                   dA, Bm, Cm, n_out=2)
+    y = y + p["d_skip"][None, :, None] * x
+    y = common.merge_heads(y)[:, None]
     return u + _gated_out(p, y, z, u, ctx, name), conv_state_new, ssm_new
 
 

@@ -33,11 +33,11 @@ MTP_WEIGHT = 0.3
 def _cache_write(buf: torch.Tensor, li: int, pos, val: torch.Tensor) -> None:
     """Insert one token's (B, 1, ...) entry into layer ``li`` of a
     (L, B, Smax, ...) cache at ``pos``: a scalar, or (B,) slot depths."""
-    val = val[:, 0].to(buf.dtype)
     if torch.is_tensor(pos) and pos.dim():
+        val = val[:, 0].to(buf.dtype)
         buf[li, torch.arange(val.shape[0], device=buf.device), pos] = val
     else:
-        buf[li, :, int(pos)] = val
+        common.put_tokens(buf, (li,), int(pos), val[:, :1])
 
 
 def _attn_params(gen, cfg, dtype, device) -> dict:
@@ -141,14 +141,17 @@ class TransformerLM:
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         a = p["attn"]
-        q = ctx.linear(f"{name}.wq", x, a["wq"], a.get("bq")).reshape(B, S, H, Dh)
-        k = ctx.linear(f"{name}.wk", x, a["wk"], a.get("bk")).reshape(B, S, Hkv, Dh)
-        v = ctx.linear(f"{name}.wv", x, a["wv"], a.get("bv")).reshape(B, S, Hkv, Dh)
+        q = common.split_heads(
+            ctx.linear(f"{name}.wq", x, a["wq"], a.get("bq")), H, Dh)
+        k = common.split_heads(
+            ctx.linear(f"{name}.wk", x, a["wk"], a.get("bk")), Hkv, Dh)
+        v = common.split_heads(
+            ctx.linear(f"{name}.wv", x, a["wv"], a.get("bv")), Hkv, Dh)
         q = common.apply_rope(q, sin, cos)
         k = common.apply_rope(k, sin, cos)
         o = attn.attention(q, k, v, causal=True, window=cfg.local_window,
                            chunk=cfg.attn_chunk)
-        return ctx.linear(f"{name}.wo", o.reshape(B, S, H * Dh), a["wo"]), (k, v)
+        return ctx.linear(f"{name}.wo", common.merge_heads(o), a["wo"]), (k, v)
 
     def _ffn(self, p, h, ctx, name, kind):
         """The layer's FFN: (out, aux loss); aux is 0 for a dense layer."""
@@ -304,10 +307,10 @@ class TransformerLM:
             for nm, t in zip(names, kv):
                 if "k_scale" in cache:
                     codes, scl = skv.kv_quantize(t)
-                    cache[nm][li, :, :S] = codes
-                    cache[f"{nm}_scale"][li, :, :S] = scl
+                    common.put_tokens(cache[nm], (li,), 0, codes)
+                    common.put_tokens(cache[f"{nm}_scale"], (li,), 0, scl)
                 else:
-                    cache[nm][li, :, :S] = t.to(cache[nm].dtype)
+                    common.put_tokens(cache[nm], (li,), 0, t)
         if true_len is not None:
             B = x.shape[0]
             idx = torch.as_tensor(true_len, device=x.device).long() - 1
@@ -356,9 +359,12 @@ class TransformerLM:
                                   cache["ckv"][li], cache["kr"][li], pos)
         B = z.shape[0]
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = ctx.linear("layers.wq", z, a["wq"], a.get("bq")).reshape(B, 1, H, Dh)
-        k = ctx.linear("layers.wk", z, a["wk"], a.get("bk")).reshape(B, 1, Hkv, Dh)
-        v = ctx.linear("layers.wv", z, a["wv"], a.get("bv")).reshape(B, 1, Hkv, Dh)
+        q = common.split_heads(
+            ctx.linear("layers.wq", z, a["wq"], a.get("bq")), H, Dh)
+        k = common.split_heads(
+            ctx.linear("layers.wk", z, a["wk"], a.get("bk")), Hkv, Dh)
+        v = common.split_heads(
+            ctx.linear("layers.wv", z, a["wv"], a.get("bv")), Hkv, Dh)
         q = common.apply_rope(q, sin, cos)
         k = common.apply_rope(k, sin, cos)
         if "k_scale" in cache:

@@ -203,8 +203,13 @@ def _groups(flat_p, max_elems: int):
 
 
 def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
-                lr_scale: Any = 1.0) -> Tuple[Any, dict, torch.Tensor]:
+                lr_scale: Any = 1.0, gnorm: Optional[torch.Tensor] = None
+                ) -> Tuple[Any, dict, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm).
+
+    ``gnorm`` is the gradients' global norm when the caller has it (the
+    leaves are shards of a sharded tree: ``launch.steps``); else it is
+    ``global_norm`` of ``grads``.
 
     ``lr_scale`` is a number applied to every leaf or a tree matching
     ``params`` whose leaves scale ``cfg.lr`` per leaf (the reconstruction
@@ -215,7 +220,8 @@ def adam_update(grads: Any, state: dict, params: Any, cfg: AdamConfig,
     count = state["count"] + 1
     flat_p, flat_g, flat_s = _flat_args(grads, params, lr_scale)
     flat_mu = tree_leaves(state["mu"], params)
-    gnorm = global_norm(flat_g)
+    if gnorm is None:
+        gnorm = global_norm(flat_g)
     flat_g = _clipped(flat_g, cfg, gnorm)
     c1, c2 = _bias_corrections(cfg, count)
     newp, new_mu = [], []

@@ -1,16 +1,19 @@
-"""Roofline terms of a cell on the card (the analytic part of
+"""Roofline terms of a cell on the card (port of
 ``repro/roofline/analysis.py``).
 
 Terms (per device):
 
-  compute_s = analytic flops per device / the card's bf16 peak
-  memory_s  = analytic HBM bytes per device / the card's memory rate
+  compute_s    = analytic flops per device / the card's bf16 peak
+  memory_s     = analytic HBM bytes per device / the card's memory rate
+  collective_s = collective bytes per device / one link's rate
 
-``step_time_bound_s`` is the larger, ``bottleneck`` its name. The flops and
-bytes come from ``roofline.analytic``. The reference adds a collective term
-read from the compiled HLO (``hlo_parse.py``); the port has no compiled
-program to read it from yet, so the term and the HLO's raw counts are left
-out, not set to zero (ROADMAP Queue 1 item 14.2).
+``step_time_bound_s`` is the largest, ``bottleneck`` its name. The flops
+and bytes come from ``roofline.analytic``. ``analyze`` gives the first two
+terms (the world-of-one cells of ``chip_smoke.py``); ``analyze_traced``
+adds the collective term from the bytes of a traced DTensor program
+(``roofline.collectives``, the dry run's graph), where the reference reads
+the compiled HLO. The HLO's raw flop and byte counts have no counterpart:
+a ``make_fx`` graph carries no cost analysis.
 
 Peaks are the card's published ones, one row per
 ``torch.cuda.get_device_name()``; a card with no row raises, naming it.
@@ -31,14 +34,19 @@ class CardPeaks:
     ops: Dict[str, float]      # dense ops/s by input type
     hbm_bytes_per_s: float
     hbm_bytes: float
+    link_bytes_per_s: float    # one device's share of the mesh's links
 
 
-# NVIDIA's H100 SXM data sheet, dense (no sparsity)
+# NVIDIA's H100 SXM data sheet, dense (no sparsity). The link: the DGX
+# H100 gives each GPU one ConnectX-7 port of 400 Gb/s NDR InfiniBand; a
+# 16 x 16 mesh of 8-card nodes crosses that link on both axes, so it is
+# the reference's "one link's worth per chip" on this card
 CARD_PEAKS = {
     "NVIDIA H100 80GB HBM3": CardPeaks(
         name="NVIDIA H100 80GB HBM3",
         ops={"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12},
-        hbm_bytes_per_s=3.35e12, hbm_bytes=80e9),
+        hbm_bytes_per_s=3.35e12, hbm_bytes=80e9,
+        link_bytes_per_s=400e9 / 8),
 }
 
 
@@ -145,3 +153,35 @@ def analyze(cfg, shape: ShapeSpec, n_dev: int, weights: str = "bf16",
         "step_time_bound_s": bound,
         "roofline_fraction": (mf_dev / peak) / bound if bound > 0 else 0.0,
     }
+
+
+def analyze_traced(graph_or_bytes, cfg, shape: ShapeSpec, mesh,
+                   weights: str = "bf16", mode: Optional[str] = None,
+                   kv: str = "bf16", card: Optional[CardPeaks] = None) -> dict:
+    """``analyze``'s terms for ``mesh`` (a ``DeviceMesh`` or an
+    ``AbstractMesh``) plus the collective term: ``graph_or_bytes`` is the
+    traced rank-0 graph or its ``collectives.collective_bytes``. Adds
+    ``collective_bytes_per_device``, ``collective_breakdown`` and
+    ``collective_s``; the bound, bottleneck and roofline fraction then
+    take all three terms."""
+    import math
+
+    from repro_torch.roofline.collectives import collective_bytes
+
+    card = card or peaks()
+    coll = (dict(graph_or_bytes) if isinstance(graph_or_bytes, dict)
+            else collective_bytes(graph_or_bytes))
+    out = analyze(cfg, shape, math.prod(mesh.shape), weights, mode, kv, card)
+    coll_dev = float(sum(coll.values()))
+    terms = {"compute": out["compute_s"], "memory": out["memory_s"],
+             "collective": coll_dev / card.link_bytes_per_s}
+    bottleneck = max(terms, key=terms.get)
+    bound = terms[bottleneck]
+    peak = card.ops["bfloat16"]
+    out.update(
+        collective_bytes_per_device=coll_dev, collective_breakdown=coll,
+        collective_s=terms["collective"], bottleneck=bottleneck,
+        step_time_bound_s=bound,
+        roofline_fraction=((out["model_flops_per_device"] / peak) / bound
+                           if bound > 0 else 0.0))
+    return out

@@ -6,11 +6,14 @@ Usage: PYTHONPATH=src python -m repro_torch.roofline.report [results.json ...]
 A results file is a list of cell records (``{"cell", "status", "memory":
 {"peak_bytes_per_device"}, "analysis": roofline.analysis.analyze(...)}``),
 or a dict holding one under ``"cells"`` (``chip_smoke.py``'s
-``chiprun_out/chip_smoke.json``). Multiple files merge (later files
-override same cell ids). The memory line counts the cells whose peak
-exceeds the card's memory (``roofline.analysis.CARD_PEAKS``, the card the
-records name). A record without a collective term (the port's, until
-ROADMAP item 14.2) shows a dash there.
+``chiprun_out/chip_smoke.json``; the dry run's ``--out`` file). Multiple
+files merge (later files override same cell ids). The memory line counts
+the cells whose peak exceeds the card's memory
+(``roofline.analysis.CARD_PEAKS``, the card the records name). The
+collective column shows ``analyze_traced``'s term (the dry run's records)
+and a dash for a record of ``analyze``, which has none (the world-of-one
+cells). The summary counts the dry-run records traced on a CPU mesh
+(``mesh_device``): their collective kinds are not the card's.
 """
 from __future__ import annotations
 
@@ -100,6 +103,11 @@ def summary(cells: Dict[str, dict], card: Optional[CardPeaks] = None) -> str:
     for r in sorted(over, key=lambda r: -r["memory"]["peak_bytes_per_device"]):
         lines.append(f"    {r['cell']}: "
                      f"{r['memory']['peak_bytes_per_device']/GiB:.1f} GiB")
+    cpu = [r["cell"] for r in ok if r.get("mesh_device") == "cpu"]
+    if cpu:
+        lines.append(f"  cells traced on a CPU mesh, whose all-to-alls are "
+                     f"counted as the all-gathers DTensor issues there: "
+                     f"{len(cpu)}")
     return "\n".join(lines)
 
 

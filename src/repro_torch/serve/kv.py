@@ -16,7 +16,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.attention import NEG_INF, pos_mask
+from repro_torch.models.attention import (NEG_INF, batch_only, pos_mask,
+                                         softmax_last)
+from repro_torch.core.dist import einsum
 
 KV_EPS = 1e-6
 KV_QMAX = 127.0
@@ -51,16 +53,16 @@ def int8_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
     B, _, Hq, D = q.shape
     Smax, Hkv = k_codes.shape[1], k_codes.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, 1, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_codes.float())
+    qg = batch_only(q).reshape(B, 1, Hkv, G, D).float()
+    s = einsum("bqhgd,bkhd->bhgqk", qg, k_codes.float())
     k_s = k_scale[..., 0].transpose(1, 2)[:, :, None, None, :]
     s = s * k_s * (D**-0.5)
     valid = pos_mask(pos, B, Smax, window, q.device)
     s = torch.where(valid[:, None, None, None, :], s,
                     torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = softmax_last(s)
     pv = p * v_scale[..., 0].transpose(1, 2)[:, :, None, None, :]
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pv, v_codes.float())
+    out = einsum("bhgqk,bkhd->bqhgd", pv, v_codes.float())
     return out.reshape(B, 1, Hq, v_codes.shape[-1]).to(q.dtype)
 
 

@@ -59,7 +59,10 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.launch.specs", "repro_torch.roofline",
                "repro_torch.roofline.analytic",
                "repro_torch.roofline.analysis",
-               "repro_torch.roofline.report")
+               "repro_torch.roofline.report",
+               "repro_torch.launch.dryrun",
+               "repro_torch.roofline.collectives",
+               "repro_torch.core.dist")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():

@@ -14,7 +14,14 @@ reference.
   reference's, but for the memory line, which names the card's memory;
 - an unknown card raises, naming it; no TPU constant is in the port's
   roofline or in ``chip_smoke.py``, which reads the card's peaks from
-  ``analysis.CARD_PEAKS``.
+  ``analysis.CARD_PEAKS``;
+- ``analysis.analyze_traced`` adds the collective term on the card's link
+  (``link_bytes_per_s``: one 400 Gb/s port per GPU), and the bound, the
+  bottleneck and the roofline fraction take all three terms;
+  ``roofline.collectives`` counts each functional collective of a traced
+  graph once, by the reference's kinds, at its result's bytes (the
+  ``wait_tensor`` that follows it not counted), and the report renders
+  the collective column for such records.
 """
 import json
 import re
@@ -201,3 +208,79 @@ def test_no_tpu_constant_in_the_port_roofline_or_the_smoke_run():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert "989e12" not in smoke and "3.35e12" not in smoke
     assert "CARD_PEAKS" in smoke or "analysis.peaks" in smoke
+
+
+def test_card_link_rate():
+    assert analysis.peaks(H100).link_bytes_per_s == 400e9 / 8
+
+
+def _traced_record(card):
+    coll = {"all-gather": 20_000_000, "all-reduce": 10_000_000,
+            "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    mesh = types.SimpleNamespace(shape=(16, 16),
+                                 mesh_dim_names=("data", "model"))
+    return coll, analysis.analyze_traced(
+        coll, get_config("smollm-135m"), SHAPES["decode_32k"], mesh, "int8",
+        card=card)
+
+
+def test_analyze_traced_adds_the_collective_term():
+    card = analysis.peaks(H100)
+    coll, got = _traced_record(card)
+    base = analysis.analyze(get_config("smollm-135m"), SHAPES["decode_32k"],
+                            256, "int8", card=card)
+    for k in ("flops_per_device", "bytes_per_device", "compute_s", "memory_s",
+              "model_flops_per_device", "useful_flops_ratio"):
+        assert got[k] == base[k], k
+    assert got["collective_breakdown"] == coll
+    assert got["collective_bytes_per_device"] == 30e6
+    assert got["collective_s"] == 30e6 / (400e9 / 8)
+    terms = {"compute": got["compute_s"], "memory": got["memory_s"],
+             "collective": got["collective_s"]}
+    assert got["bottleneck"] == max(terms, key=terms.get) == "collective"
+    assert got["step_time_bound_s"] == got["collective_s"]
+    assert got["roofline_fraction"] == (
+        got["model_flops_per_device"] / card.ops["bfloat16"]
+        / got["collective_s"])
+
+
+def test_report_renders_the_collective_column():
+    card = analysis.peaks(H100)
+    _, traced = _traced_record(card)
+    rec = {"cell": "x|decode", "status": "ok",
+           "memory": {"peak_bytes_per_device": 1e9}, "analysis": traced}
+    row = report.markdown({"x|decode": rec}).splitlines()[-1]
+    assert f"| {traced['collective_s']:.2e} | collective |" in row
+    assert "—" not in row
+    assert "collective-bound: 1 cells" in report.summary({"x|decode": rec})
+
+
+def test_collectives_counted_once_by_kind():
+    """A traced program of four functional collectives on a fake group of
+    4 ranks: each counted once at its result's bytes."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import collectives
+
+    def prog(x):
+        g = dist.group.WORLD
+        a = fc.all_reduce(x, "sum", g)                       # (8, 16) f32
+        b = fc.all_gather_single(x, 0, g)                    # (32, 16)
+        c = fc.reduce_scatter_single(x, "sum", 0, g)         # (2, 16)
+        d = fc.all_to_all_single(x.to(torch.bfloat16), None, None, g)
+        return a, b, c, d
+
+    with dryrun.fake_world(4):
+        gm = make_fx(prog, tracing_mode="fake")(torch.zeros(8, 16))
+    assert collectives.collective_counts(gm) == {
+        "all-reduce": 1, "all-gather": 1, "reduce-scatter": 1,
+        "all-to-all": 1}
+    assert collectives.collective_bytes(gm) == {
+        "all-reduce": 8 * 16 * 4, "all-gather": 32 * 16 * 4,
+        "reduce-scatter": 2 * 16 * 4, "all-to-all": 8 * 16 * 2,
+        "collective-permute": 0}
+    waits = [n for n in gm.graph.nodes if "wait_tensor" in str(n.target)]
+    assert waits and not any(collectives.kind_of(n) for n in waits)
