@@ -137,7 +137,10 @@ printed):
               err_before/err_after per block; fails on a non-finite
               error, or unless the errors' sum after training is below both
               its own sum before and the export-only run's sum. Request 0
-              is re-run with the plain versions (5e-2 relative L2).
+              is re-run with the plain versions (5e-2 relative L2). The
+              launcher writes telemetry (--telemetry TELEMETRY_DIR, under
+              build/), which ``python -m repro_torch.obs.sink --validate``
+              must accept (exit 0).
    Auto-bits — the trained phase's launcher command plus ``--auto-bits
               4.5`` (avg_bits budget, combined objective, AUTO_ITERS = 50
               iterations: 100 until the dry-run phase took the seconds), ``--resume-dir`` and ``--serve``: the sensitivity
@@ -578,6 +581,9 @@ AUTO_ITERS = 50  # TRAIN_ITERS until the dry-run phase took the seconds
 AUTO_BITS_OTHER = "4.0"
 # checkpoints and exports of the launcher phases (under build/, gitignored)
 RUNS_DIR = ROOT / "build" / "chip_smoke_runs"
+# the trained phase's launcher telemetry (``--telemetry``), validated after
+# the run by the port's sink CLI
+TELEMETRY_DIR = ROOT / "build" / "chip_smoke_telemetry"
 # the shape each kernel's summary line reports: (M, K, N, x) of a matmul;
 # for K4 (M, N, w) of the weight
 TIMED = {
@@ -2272,6 +2278,21 @@ def run_launcher(torch, argv):
             launcher_s, marks.get("peak", torch.cuda.max_memory_allocated()))
 
 
+def validate_telemetry(path: Path) -> None:
+    """``python -m repro_torch.obs.sink --validate`` on a launcher's
+    telemetry file: the run fails unless the sink CLI exits 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.obs.sink",
+                           "--validate", str(path)], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    log(f"telemetry: repro_torch.obs.sink --validate exited "
+        f"{proc.returncode}: {proc.stdout.strip()}")
+    if proc.returncode != 0:
+        fail(f"telemetry: the sink CLI refused {path}: "
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+
+
 def trained_phase(torch, np, export_only_errs, path_serve_counts):
     """smollm-135m through the PTQ launcher, in process:
     ``repro_torch.launch.quantize.main`` with ``launcher_argv(TRAIN_ITERS)``,
@@ -2287,12 +2308,15 @@ def trained_phase(torch, np, export_only_errs, path_serve_counts):
     from repro_torch.obs import compile_events
 
     n_caps = len(compile_events.capture_seconds("recon.step"))
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
     argv = launcher_argv(TRAIN_ITERS) + [
         "--resume-dir", str(RUNS_DIR / "trained_ckpt"),
-        "--out", str(RUNS_DIR / "trained_export"), "--serve", "--analyze-mem"]
+        "--out", str(RUNS_DIR / "trained_export"), "--serve", "--analyze-mem",
+        "--telemetry", str(TELEMETRY_DIR)]
     log("trained: python -m repro_torch.launch.quantize " + " ".join(argv))
     (res, counts, export_counts, serve_counts, export_s, launcher_s,
      peak) = run_launcher(torch, argv)  # exits non-zero on a finding
+    validate_telemetry(TELEMETRY_DIR / "events.jsonl")
     marks = res.analyze_marks
     log(f"trained: --analyze-mem ran {marks['analyze_s']:.2f}s after the "
         "launcher's run and found no error")

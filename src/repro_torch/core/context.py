@@ -244,3 +244,11 @@ class QuantCtx:
         if b is not None:
             y = y + b.to(y.dtype)
         return y
+
+
+FP_CTX = QuantCtx(mode="fp")
+
+
+def fp() -> QuantCtx:
+    """A fresh full-precision context."""
+    return QuantCtx(mode="fp")

@@ -51,10 +51,23 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return _Clip.apply(x, lo, hi)
 
 
+def ste_clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Clip with identity gradient everywhere, at and beyond the bounds too
+    (where the paper's STE passes through); not ``clip``."""
+    return x + (torch.clamp(x, lo, hi) - x).detach()
+
+
 def grad_scale(x: torch.Tensor, g) -> torch.Tensor:
     """Forward identity; scales the gradient by ``g`` (LSQ trick). Written
     term for term as the reference so the forward rounds identically."""
     return x * g + (x - x * g).detach()
+
+
+def scale_shape(shape: Tuple[int, ...], qcfg: QuantConfig) -> Tuple[int, ...]:
+    """Shape of the scale of a weight of ``shape``: 1 on every reduced axis
+    (``reduce_axes``), the weight's size on the kept ones."""
+    reduced = set(reduce_axes(shape, qcfg))
+    return tuple(1 if i in reduced else n for i, n in enumerate(shape))
 
 
 def reduce_axes(shape: Tuple[int, ...], qcfg: QuantConfig) -> Tuple[int, ...]:

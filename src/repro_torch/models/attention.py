@@ -1,5 +1,6 @@
 """Attention primitives (port of ``repro/models/attention.py``): chunked
-online-softmax attention for prefill and single-token decode attention.
+online-softmax attention for prefill, single-token decode attention and
+``attention_full``, the plain O(Sq * Sk) oracle.
 
 Both support GQA (n_kv_heads <= n_heads), causal masking and sliding
 windows, in float32. The chunked path scans KV chunks with a running
@@ -143,6 +144,28 @@ def pos_mask(pos, B: int, Smax: int, window: int, device) -> torch.Tensor:
     if window > 0:
         valid &= k_pos[None, :] > posb - window
     return valid
+
+
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, q_offset: int = 0,
+                   kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain O(Sq * Sk)-memory attention, the oracle of the chunked path
+    (tests, small shapes): q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D), GQA by
+    head groups; keys at or past ``kv_len`` masked out."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (D**-0.5)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    valid = _mask(q_pos, k_pos, causal, window)
+    if kv_len is not None:
+        valid = valid & (k_pos[None, :] < kv_len)
+    s = torch.where(valid[None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

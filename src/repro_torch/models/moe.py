@@ -30,6 +30,16 @@ process's. QDrop draws of the expert sites are then made at the global
 shape (``qdrop.whole_batch``). In ``capture`` mode the gathered expert
 inputs are the global batch's on every rank; the layer-wise
 reconstruction refuses them (``context.GATHERED``).
+
+**On a DTensor mesh** (the cell programs) the same case arises where a
+data rank's tokens straddle a group and there is more than one group
+(deepseek-v3's mtp layer at ``train_4k``: 256 x 4095 tokens in 8190 groups
+of 128, 511.875 a data rank): DTensor refuses the view of the rows as
+groups, where XLA pads it. The MoE input is then gathered over the data
+axes and every data rank routes every group, as GSPMD itself does there
+(two all-gathers of the mtp input in the reference's HLO); the expert
+buffers give up the group sharding and the output comes back to the
+rows. Plain tensors never take this path.
 """
 from __future__ import annotations
 
@@ -150,13 +160,18 @@ def _routed(p: dict, x: torch.Tensor, N: int, cfg, ctx: QuantCtx,
     """The routed experts over x (B, S, D) in groups of N tokens: (y, aux)."""
     B, S, D = x.shape
     E = cfg.n_experts
+    G = B * S // N
     x = common.shard_hint(x, "dp", None, None)  # a view of whole rows
-    xt = common.shard_hint(x.reshape(B * S // N, N, D), "dp", None, None)
+    gather = _straddled(x, N)
+    if gather:  # every data rank routes every group (module docstring)
+        xt = common.shard_hint(x, None, None, None).reshape(G, N, D)
+    else:
+        xt = common.shard_hint(x.reshape(G, N, D), "dp", None, None)
     probs, _, dispatch, combine = route(p, xt, cfg)
 
     xd = x.dtype
     e_axes = expert_axes(E)
-    g_e = None if isinstance(e_axes, tuple) else "dp"
+    g_e = None if gather or isinstance(e_axes, tuple) else "dp"
     dispatch = common.shard_hint(dispatch, g_e, None, e_axes, None)
     combine = common.shard_hint(combine, g_e, None, e_axes, None)
     xe = _dispatch(dispatch.to(xd), xt)  # (G, E, C, D)
@@ -165,13 +180,38 @@ def _routed(p: dict, x: torch.Tensor, N: int, cfg, ctx: QuantCtx,
                     batch_dims=1)
     ye = common.shard_hint(ye, g_e, e_axes, None, None)
     y = _combine(combine.to(xd), ye)
+    if gather:  # to the rows, which divide over the data ranks
+        y = y.reshape(B, S, D)
     y = common.shard_hint(y, "dp", None, None).reshape(B, S, D)
     y = common.shard_hint(y, "dp", None, None)  # its gradient too
 
     # auxiliary load-balance loss (Switch eq. 4)
+    if isinstance(e_axes, tuple):
+        # the mean's gradient comes back to the groups' placement: spread
+        # over the experts' second mesh dim too, it would reach the router's
+        # gradient product in a flattened strided placement, which DTensor's
+        # matmul rule refuses
+        probs = common.shard_hint(probs, "dp", None, None)
     me = torch.mean(probs, dim=(0, 1))  # (E,)
     fe = torch.mean(dispatch.sum(-1), dim=(0, 1))  # fraction dispatched
     return y, E * torch.sum(me * fe)
+
+
+def _straddled(x: torch.Tensor, N: int) -> bool:
+    """Whether some data rank's tokens of ``x`` (a DTensor (B, S, D), rows
+    over the data axes) are not whole groups of ``N`` while there is more
+    than one group: DTensor then refuses the view of the rows as groups,
+    where XLA pads it. (One group takes the tokens' sharding on ``N``,
+    which DTensor views.)"""
+    if not common.is_dtensor(x):
+        return False
+    mesh = x.device_mesh
+    ranks = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(0):
+            ranks *= mesh.size(i)
+    G = x.shape[0] * x.shape[1] // N
+    return G > 1 and G % ranks != 0
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg, ctx: QuantCtx,

@@ -3,7 +3,9 @@
   telemetry.py       process-global counters/gauges/histograms + nested
                      host-side spans (disabled by default, no-op when off)
   sink.py            JSONL event sink + RunManifest (run identity stamped
-                     into checkpoint meta, exports and serve stats)
+                     into checkpoint meta, exports and serve stats);
+                     ``check_bench`` and the ``--validate``/``--check-bench``
+                     CLI (``python -m repro_torch.obs.sink``)
   serve_metrics.py   per-request lifecycle metrics: queue wait, TTFT,
                      per-bucket prefill histograms, occupancy/backlog
   compile_events.py  the serving engine's CUDA-graph captures, attributed to
@@ -16,6 +18,7 @@ from repro_torch.obs.sink import (  # noqa: F401
     JsonlSink,
     ListSink,
     RunManifest,
+    check_bench,
     current_manifest,
     validate_events,
 )

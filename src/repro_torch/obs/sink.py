@@ -20,7 +20,10 @@ Manifest fields:
   allocation_digest  digest of the automatic bit allocation (None if none)
 
 The sink itself is append-only JSONL, flushed per record so a crashed run
-keeps everything emitted before the crash.
+keeps everything emitted before the crash. ``validate_events`` checks such
+a stream, ``check_bench`` that bench JSON records are manifest-stamped;
+``python -m repro_torch.obs.sink --validate EVENTS_JSONL --check-bench
+BENCH_JSON`` runs them as the reference's CLI does (exit 1 on an error).
 """
 from __future__ import annotations
 
@@ -213,3 +216,65 @@ def validate_events(path: str) -> List[str]:
         errors.append(f"{path}: no manifest record — the run has no "
                       "identity; emit RunManifest first")
     return errors
+
+
+def check_bench(path: str) -> List[str]:
+    """Assert that every bench JSON record is manifest-stamped (a git sha
+    and an int schema version): the contract that makes bench records
+    comparable across commits. Returns the errors (empty = valid)."""
+    errors: List[str] = []
+    try:
+        with open(path) as fh:
+            records = json.load(fh)
+    except (OSError, json.JSONDecodeError) as e:
+        return [f"{path}: unreadable ({e})"]
+    if not isinstance(records, list) or not records:
+        return [f"{path}: expected a non-empty list of records"]
+    for i, rec in enumerate(records):
+        m = rec.get("manifest") if isinstance(rec, dict) else None
+        if not isinstance(m, dict):
+            errors.append(f"{path}[{i}] ({rec.get('name', '?')}): "
+                          "no manifest stamp")
+            continue
+        if not m.get("git_sha"):
+            errors.append(f"{path}[{i}]: manifest has no git_sha")
+        if not isinstance(m.get("schema_version"), int):
+            errors.append(f"{path}[{i}]: manifest has no schema_version")
+    return errors
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """``python -m repro_torch.obs.sink --validate EVENTS_JSONL
+    --check-bench BENCH_JSON``: prints ``OK`` lines or ``error:`` lines,
+    exits 1 on any error (the reference's CLI)."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="validate telemetry JSONL / bench JSON manifests")
+    ap.add_argument("--validate", metavar="EVENTS_JSONL", default=None,
+                    help="schema-check a telemetry events file")
+    ap.add_argument("--check-bench", metavar="BENCH_JSON", default=None,
+                    help="assert every bench record is manifest-stamped")
+    args = ap.parse_args(argv)
+    if not args.validate and not args.check_bench:
+        ap.error("pass --validate and/or --check-bench")
+    errors: List[str] = []
+    if args.validate:
+        errors += validate_events(args.validate)
+        if not errors:
+            with open(args.validate) as fh:
+                n = sum(1 for line in fh if line.strip())
+            print(f"{args.validate}: {n} records, schema <= "
+                  f"{SCHEMA_VERSION}, manifest-stamped: OK")
+    if args.check_bench:
+        errs = check_bench(args.check_bench)
+        errors += errs
+        if not errs:
+            print(f"{args.check_bench}: all records manifest-stamped: OK")
+    for e in errors:
+        print(f"error: {e}")
+    if errors:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

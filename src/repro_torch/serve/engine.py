@@ -426,7 +426,8 @@ class ServeEngine:
             "decode_steps": self.decode_steps,
             "tokens_emitted": self.tokens_emitted,
             "hbm_per_slot_bytes": self.hbm_per_slot_bytes(),
-            "hbm_per_slot_MiB": self.hbm_per_slot_bytes() / 2**20,
+            "hbm_per_slot_MiB": skv.hbm_per_slot_mib(self.state["cache"],
+                                                     self.cfg.slots),
             "kv_quant": self.cfg.kv_quant,
             "requests": self.metrics.request_summary(),
             "manifest": current_manifest().brief(),

@@ -66,6 +66,18 @@ def int8_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
     return out.reshape(B, 1, Hq, v_codes.shape[-1]).to(q.dtype)
 
 
+def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """The entries ``codes * scale`` in ``dtype``. The decode path never
+    calls it: ``int8_decode_attention`` folds the scales in instead."""
+    return (codes.float() * scale).to(dtype)
+
+
+def quantized_cache(cache) -> bool:
+    """Does this cache dict hold int8 codes + scales (vs raw K/V)?"""
+    return isinstance(cache, dict) and "k_scale" in cache
+
+
 def cache_bytes(cache) -> int:
     """Total bytes held by a cache: every tensor of its dicts and lists
     (codes + scales, raw K/V, recurrent states)."""
@@ -79,6 +91,11 @@ def cache_bytes(cache) -> int:
 def hbm_per_slot_bytes(cache, slots: int) -> int:
     """Bytes of KV state one decode slot pins in device memory."""
     return cache_bytes(cache) // slots
+
+
+def hbm_per_slot_mib(cache, slots: int) -> float:
+    """MiB of KV state one decode slot pins in device memory."""
+    return hbm_per_slot_bytes(cache, slots) / 2**20
 
 
 def unsupported(family: str, detail: str) -> KVQuantUnsupported:

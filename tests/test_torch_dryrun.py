@@ -42,6 +42,12 @@ the (2, 2, 2) half of the matrix.
   in for the reference's trip-count correction.
 - **Position.** A decode cell's collectives are the same at two positions
   in different sequence shards of the cache.
+- **MoE groups across uneven data ranks.** deepseek-v3 at 8 x 41: the mtp
+  layer's groups straddle the two data ranks; the cell traces, the MoE
+  gathers the mtp input as GSPMD does (as many all-gathers of it as the
+  reference's HLO), its dp gradient reductions are held to the
+  reference's HLO with named bytes, and a plain run's groups, output and
+  aux loss are unchanged bit for bit.
 - **MoE placements.** The MoE hints give the expert buffers the expert
   weights' placement on E: EP over ``model`` on (2, 4), where E = 4 does
   not divide data x model, full EP over (data, model) on (2, 2, 2).
@@ -122,9 +128,13 @@ from repro.launch.steps import build_cell
 from repro.roofline.hlo_parse import collective_bytes_trip_corrected
 train = dataclasses.replace(get_shape("train_4k"), seq_len=64, global_batch=8)
 dec = dataclasses.replace(get_shape("decode_32k"), seq_len=64, global_batch=8)
+uneven = dataclasses.replace(get_shape("train_4k"), seq_len=41,
+                             global_batch=8)
 mesh = make_debug_mesh()
 out = {}
 for key, arch, shp, w, mode in (
+        ("deepseek-v3-671b|train|dp", "deepseek-v3-671b", uneven, "bf16",
+         "dp"),
         ("smollm-135m|train", "smollm-135m", train, "bf16", None),
         ("smollm-135m|decode", "smollm-135m", dec, "int8", None),
         ("smollm-135m|train|dp", "smollm-135m", train, "bf16", "dp"),
@@ -211,7 +221,10 @@ def reference():
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for rec in out.values():
-        rec["coll"] = ref_collective_bytes(rec.pop("hlo"))
+        hlo = rec.pop("hlo")
+        rec["coll"] = ref_collective_bytes(hlo)
+        rec["gathers"] = re.findall(
+            r"= (\w+\[[\d,]*\])\{[^}]*\} all-gather(?:-start)?\(", hlo)
     return out
 
 
@@ -254,6 +267,133 @@ def test_tp_fsdp_breakdown_beside_reference(world, reference, arch, mode):
     for k in port:
         print(f"  {k:20s} port {port[k]:>12d}  reference {int(ref[k]):>12d}")
     assert sum(port.values()) > 0 and sum(ref.values()) > 0
+
+
+# ------------------------------------------------- MoE groups across ranks
+UNEVEN = dataclasses.replace(get_shape("train_4k"), seq_len=41,
+                             global_batch=8)
+
+
+def _gathers(gm, shape):
+    from repro_torch.roofline.collectives import kind_of
+    return sum(kind_of(n) == "all-gather" and
+               tuple(n.meta["val"].shape) == shape for n in gm.graph.nodes)
+
+
+def test_uneven_moe_groups_trace(world):
+    """deepseek-v3's smoke config at 8 x 41 on the (2, 4) mesh: the mtp
+    layer routes 8 x 40 = 320 tokens in 5 groups of ``moe_group`` = 64,
+    and each of the 2 data ranks holds 160 tokens, 2.5 groups (the
+    production cell's 65,520 tokens a rank are 511.875 groups). The main
+    MoE layer's 8 x 41 = 328 tokens are 8 groups of 41, 4 a rank. DTensor
+    refuses the view of rows as groups in the mtp layer; the MoE gathers
+    its input there, so the trace holds two all-gathers of the whole
+    (8, 40, 64) mtp input (the input, and its gradient's way back), and
+    none of the main layer's (8, 41, 64)."""
+    gm, _ = dryrun.trace_cell(get_smoke_config("deepseek-v3-671b"), UNEVEN,
+                              debug_mesh(False), weights="bf16")
+    assert _gathers(gm, (8, 40, 64)) == 2
+    assert _gathers(gm, (8, 41, 64)) == 0
+    rec = dryrun.cell_record(get_smoke_config("deepseek-v3-671b"), UNEVEN,
+                             debug_mesh(False), "deepseek-v3-671b|uneven",
+                             weights="bf16")
+    check_record(rec)
+
+
+def test_uneven_moe_dp_all_reduce_bytes_match_reference(world, reference):
+    """The uneven cell in dp mode. Its all-reduces whose result has a
+    parameter's shape are the gradient reductions: every parameter's
+    float32 gradient once, but the mtp layer's router and experts, whose
+    gradients are whole on every data rank (every rank routes every group
+    of the gathered mtp input; GSPMD gathers it too: the reference's HLO
+    holds as many all-gathers of the (8, 40, 64) mtp input as the port's
+    trace). The others are activations' partial sums over ``model`` (the
+    rows (4, 41, 64) and (4, 40, 64): DTensor shards the heads and the
+    experts over ``model``) and scalar reductions. Against the reference's
+    HLO (read by the rule of ``test_dp_all_reduce_bytes_match_reference``),
+    named bytes: the reference reduces the output head's gradient once per
+    chunk of each of the two cross entropies' loops (main and mtp, 2 + 2
+    chunks of 32; the port once), and the embedding's gradient twice (the
+    token lookup and the mtp's next-token lookup, reduced apart). With
+    those the port is within 1% of the reference; the rest is the scalar
+    reductions."""
+    from repro_torch.roofline.collectives import kind_of
+    cfg = get_smoke_config("deepseek-v3-671b")
+    gm, _ = dryrun.trace_cell(cfg, UNEVEN, debug_mesh(False),
+                              weights="bf16", mode="dp")
+    params = steps.build_cell(cfg, UNEVEN, debug_mesh(False),
+                              mode="dp").args[0]["params"]
+    shapes = {tuple(t.shape) for t in tree_leaves(params)}
+    grads = rest = 0
+    for n in gm.graph.nodes:
+        if kind_of(n) == "all-reduce":
+            v = n.meta["val"]
+            b = v.numel() * v.element_size()
+            if tuple(v.shape) in shapes:
+                grads += b
+            else:
+                rest += b
+                assert v.dim() == 1 or tuple(v.shape) in {
+                    (4, 41, 64), (4, 40, 64)}, tuple(v.shape)
+
+    def size(tree):
+        return 4 * sum(math.prod(t.shape) for t in tree_leaves(tree))
+
+    moe = params["mtp"]["layer"]["mlp"]
+    assert grads == size(params) - size(moe["experts"]) - size(moe["router"])
+    head = 4 * cfg.d_model * cfg.vocab
+    chunks = sum(math.ceil(s / min(cfg.xent_chunk, s))
+                 for s in (UNEVEN.seq_len, UNEVEN.seq_len - 1))
+    named = head * (chunks - 1) + size(params["embed"])
+    ref = reference["deepseek-v3-671b|train|dp"]
+    port = collective_bytes(gm)
+    print("deepseek-v3 uneven dp train bytes per device (port, reference):")
+    for k in port:
+        print(f"  {k:20s} {port[k]:>12d} {int(ref['coll'][k]):>12d}")
+    print(f"  gradient all-reduce {grads}, activations and scalars {rest}, "
+          f"named {named}")
+    assert port["all-reduce"] == grads + rest
+    assert abs(grads + named - ref["coll"]["all-reduce"]) <= \
+        0.01 * ref["coll"]["all-reduce"]
+    assert _gathers(gm, (8, 40, 64)) == ref["gathers"].count("f32[8,40,64]")
+
+
+def test_plain_moe_groups_unchanged():
+    """On plain tensors ``moe_ffn`` routes the groups ``x.reshape(T // N,
+    N, D)`` (the gather is for DTensors only), and its output and aux loss
+    are bit for bit the composition of ``route``, the dispatch, the
+    experts and the combine on those groups: the uneven cell's mtp tokens
+    (8 x 40) and the main layer's (8 x 41)."""
+    import torch
+
+    from repro_torch.core.context import QuantCtx
+    from repro_torch.models import common, moe
+    cfg = get_smoke_config("deepseek-v3-671b")
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_params(gen, cfg, torch.float32, "cpu")
+    seen = []
+    route = moe.route
+    moe.route = lambda p_, xt, c: seen.append(xt) or route(p_, xt, c)
+    try:
+        for S in (UNEVEN.seq_len - 1, UNEVEN.seq_len):
+            x = torch.randn(8, S, cfg.d_model, generator=gen)
+            ctx = QuantCtx(mode="fp")
+            y, aux = moe.moe_ffn(p, x, cfg, ctx, "m")
+            N = moe._pick_group(8 * S, cfg.moe_group)
+            assert not moe._straddled(x, N)
+            xt = x.reshape(8 * S // N, N, cfg.d_model)
+            assert torch.equal(seen[-1], xt)
+            probs, _, dispatch, combine = route(p, xt, cfg)
+            ye = common.mlp(p["experts"], moe._dispatch(dispatch, xt), ctx,
+                            "m.experts", cfg.act, batch_dims=1)
+            want = moe._combine(combine, ye).reshape(x.shape) + common.mlp(
+                p["shared"], x, ctx, "m.shared", cfg.act)
+            aux_want = cfg.n_experts * torch.sum(
+                torch.mean(probs, dim=(0, 1))
+                * torch.mean(dispatch.sum(-1), dim=(0, 1)))
+            assert torch.equal(y, want) and torch.equal(aux, aux_want)
+    finally:
+        moe.route = route
 
 
 # ---------------------------------------------------------------- depth

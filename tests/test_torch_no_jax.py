@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` and every submodule pulls
-in neither ``jax`` nor the reference package, and the default device is
-CUDA, which raises when no card is visible (no silent CPU fallback)."""
+"""The port stands alone: importing ``repro_torch`` and every submodule, or
+the port's examples (``examples/torch_*.py``), pulls in neither ``jax`` nor
+the reference package, and the default device is CUDA, which raises when no
+card is visible (no silent CPU fallback)."""
 import subprocess
 import sys
 
@@ -73,6 +74,48 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(out[0]) >= 30
     assert out[1:] == ["False", "False", "False"]
     assert set(NEW_MODULES) <= set(lines[1].split())
+
+
+_EXAMPLES_PROBE = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch_quickstart, torch_train_small
+import repro_torch.serve.kv
+print('engine' if 'repro_torch.serve.engine' in sys.modules else 'kv only')
+from repro_torch.serve import ServeEngine, serve_capability
+print('jax' in sys.modules, 'repro' in sys.modules,
+      any(k.startswith(('jax.', 'repro.')) for k in sys.modules))
+"""
+
+
+def test_examples_and_serve_exports_pull_in_no_jax():
+    """The port's examples import no ``jax`` and nothing of ``repro``;
+    ``repro_torch.serve.kv`` alone does not import the engine, and the
+    engine's names import lazily from ``repro_torch.serve``."""
+    import os
+    examples = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples")
+    lines = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE, examples],
+                           capture_output=True, text=True, timeout=120,
+                           check=True).stdout.splitlines()
+    assert lines == ["kv only", "False False False"]
+
+
+def test_examples_default_to_cuda(monkeypatch, tmp_path):
+    """Both examples run on the card unless ``--device cpu`` is passed:
+    without one they raise before any work (no checkpoint written)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "examples"))
+    import torch_quickstart
+    import torch_train_small
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_quickstart.main(["--iters", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_train_small.main(["--steps", "1", "--ckpt",
+                                str(tmp_path / "ck")])
+    assert not list(tmp_path.iterdir())
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -1,9 +1,12 @@
 """The cell programs as DTensor programs on real ranks: gloo CPU ranks
 (world 4, mesh (2, 2) of data x model, the kernels' plain versions) run
 the ``reduced()`` smollm-135m, olmo-1b and llama4-scout-17b-a16e cells,
-each held against the same cell at world 1 (``launch.mesh.AbstractMesh``,
-plain tensors), with the same arguments (drawn from one seed on every
-rank; ``launch.sharding.distribute`` keeps each rank's slice).
+and deepseek-v3-671b's train cell at 8 x 41 (``UNEVEN``: its mtp layer's
+token groups straddle the two data ranks, so the MoE gathers its input
+over them), each held against the same cell at world 1
+(``launch.mesh.AbstractMesh``, plain tensors), with the same arguments
+(drawn from one seed on every rank; ``launch.sharding.distribute`` keeps
+each rank's slice).
 
 Train (``train_cell``, one step, weights bf16): loss and gradient norm
 within 1e-5 relative of world 1, every parameter as
@@ -39,6 +42,14 @@ ARCHS = ("smollm-135m", "olmo-1b", "llama4-scout-17b-a16e")
 TRAIN = dataclasses.replace(get_shape("train_4k"), seq_len=32, global_batch=4)
 DECODE = dataclasses.replace(get_shape("decode_32k"), seq_len=64,
                              global_batch=4)
+# deepseek-v3's mtp layer: 8 x 40 tokens in 5 groups of 64, 2.5 a data rank
+# (test_torch_dryrun.py: test_uneven_moe_groups_trace)
+UNEVEN = dataclasses.replace(get_shape("train_4k"), seq_len=41,
+                             global_batch=8)
+CELLS = tuple((a, s, w) for a in ARCHS for s, w in ((TRAIN, "bf16"),
+                                                     (DECODE, "int8"))) + (
+    ("deepseek-v3-671b", UNEVEN, "bf16"),)
+TRAIN_ARCHS = ARCHS + ("deepseek-v3-671b",)
 MESH = ((2, 2), ("data", "model"))
 ONE = ((1, 1), ("data", "model"))
 POS = DECODE.seq_len // 2
@@ -112,22 +123,19 @@ def sharded_worker(out_dir):
     from repro_torch.roofline.collectives import collective_counts
     start_rank()
     out = {}
-    for arch in ARCHS:
+    for arch, shape, weights in CELLS:
         cfg = get_smoke_config(arch)
-        for shape, weights in ((TRAIN, "bf16"), (DECODE, "int8")):
-            mesh = init_device_mesh("cpu", *MESH[:1],
-                                    mesh_dim_names=MESH[1])
-            gm, _ = dryrun.trace_cell(cfg, shape, mesh, weights=weights,
-                                         pos=POS)
-            args = cell_args(cfg, shape, weights)
-            mesh = init_device_mesh("cpu", *MESH[:1],
-                                    mesh_dim_names=MESH[1])
-            res, counts = run_cell(cfg, shape, args, mesh, weights)
-            rec = {"traced": collective_counts(gm), "eager": counts}
-            if dist.get_rank() == 0:
-                rec["sharded"] = res
-                rec["one"] = run_cell(cfg, shape, args, None, weights)[0]
-            out[(arch, shape.kind)] = rec
+        mesh = init_device_mesh("cpu", *MESH[:1], mesh_dim_names=MESH[1])
+        gm, _ = dryrun.trace_cell(cfg, shape, mesh, weights=weights,
+                                  pos=POS)
+        args = cell_args(cfg, shape, weights)
+        mesh = init_device_mesh("cpu", *MESH[:1], mesh_dim_names=MESH[1])
+        res, counts = run_cell(cfg, shape, args, mesh, weights)
+        rec = {"traced": collective_counts(gm), "eager": counts}
+        if dist.get_rank() == 0:
+            rec["sharded"] = res
+            rec["one"] = run_cell(cfg, shape, args, None, weights)[0]
+        out[(arch, shape.kind)] = rec
     save_rank(out_dir, out)
 
 
@@ -141,7 +149,7 @@ def _np(t):
     return t.detach().float().numpy()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_matches_world_one(ranks, arch):
     rec = ranks[0][(arch, "train")]
     (state, m), (state1, m1) = rec["sharded"], rec["one"]
@@ -167,8 +175,7 @@ def test_decode_matches_world_one(ranks, arch):
         assert np.abs(a - b).max() <= tol, (np.abs(a - b).max(), tol)
 
 
-@pytest.mark.parametrize("kind", ("train", "decode"))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,kind", [(a, s.kind) for a, s, _ in CELLS])
 def test_eager_collectives_equal_traced(ranks, arch, kind):
     for r, out in enumerate(ranks):
         rec = out[(arch, kind)]
