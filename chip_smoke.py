@@ -436,7 +436,31 @@ printed):
               (``shard_rule_check``): each K2 shape of that decode with
               its weight split on N and on K over a (1, 2) CUDA mesh of
               a fake group, as rank 0 and as rank 1, the local product
-              against the plain version on the rank's halves.
+              against the plain version on the rank's halves. (c) Since
+              PR 32 the children also trace deepseek-v3's smoke config as
+              bf16 train cells on the (2, 4) debug mesh of a fake group
+              of 8 (CUDA on the card): 8 x 41 (the main loss's remainder
+              chunk), 8 x 64 (the mtp loss's) and 4 x 64 (2 rows a data
+              rank), one a child.
+16. Bench LM — the paper's quality path on a trained LM (run after the
+              loss phase): the bench LM (``launch/bench_lm.py``: 4 layers,
+              d_model 128, vocab 256, float32) pretrained 300 Adam steps
+              on the card (losses at steps 0, 100 and 299), then
+              ``examples/torch_ptq_pipeline.py`` (FlexRound W4A8, QDrop,
+              W8 layer 0, 200 iterations; RTN) and
+              ``examples/torch_serve_quantized.py`` (bf16, int8 and int4
+              weight-only, ``--backend kernel``) in process, in one
+              ``PathWindow`` (the ``bench-lm`` path; every K1/K2/K3 shape
+              it gave held against the plain version): fp, FlexRound and
+              RTN perplexity (logged), FlexRound's mean KL from the fp
+              model over the evaluation batches at most ``BENCH_KL_MAX``
+              and ``BENCH_KL_RATIO`` of RTN's; K1 and K2 launched, K3 for
+              layer 0's 7 W8A8 sites in the block-wise stream only (the
+              evaluation's site names lack the layer index, so it serves
+              layer 0 as W8A16 through K2: checked by name and count);
+              tok/s, weight MiB and greedy agreement of each variant; the
+              kernel-served evaluations re-run with the plain versions
+              within ``BENCH_TOL``.
 
 Every phase logs its seconds. The line before the last is the JSON kernel
 summary (K1-K5, launches per path); the last line
@@ -447,6 +471,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -5368,6 +5393,195 @@ def mesh_phase(torch, np, rows):
                     "production": production, "moe": moe}
 
 
+# ------------------------------------------------------------- bench LM
+BENCH_ITERS = 200        # examples/torch_ptq_pipeline.py's default
+BENCH_SERVE_ITERS = 80   # examples/torch_serve_quantized.py's default
+# FlexRound's mean KL divergence from the fp model over the evaluation
+# batches: at most twice the card's reading (5.845e-5 on an H100, PERF.md
+# §6) and at most BENCH_KL_RATIO of RTN's (read: 0.540 on the card, 0.092
+# on an LM trained on a CPU). The bench LM predicts little better than a
+# uniform guess, so its perplexities cannot rank the methods
+BENCH_KL_MAX = 2 * 5.845e-5
+BENCH_KL_RATIO = 0.75
+BENCH_TOL = 8e-6         # relative L2 of the logits, kernels against plain
+BENCH_LOG_STEPS = (0, 100, 299)
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _bench_eval_logits(torch, model, params, ctx, batches):
+    """The logits of every evaluation batch under ``ctx``, stacked."""
+    with torch.no_grad():
+        return torch.stack([model.logits(params, model.backbone(
+            params, b["tokens"].to(DEV), ctx)[0]) for b in batches])
+
+
+def _kl(torch, p_logits, q_logits) -> float:
+    """Mean over positions of KL(p || q) of the two models' next-token
+    distributions."""
+    lp = torch.log_softmax(p_logits.double(), -1)
+    lq = torch.log_softmax(q_logits.double(), -1)
+    return float((lp.exp() * (lp - lq)).sum(-1).mean())
+
+
+def bench_lm_phase(torch, np, rows):
+    """The paper's quality path on a trained LM: the bench LM
+    (``repro_torch.launch.bench_lm``) pretrained for ``TRAIN_STEPS`` Adam
+    steps on the card into a fresh directory, then the two examples in
+    process, in one ``PathWindow`` (the ``bench-lm`` path; every shape it
+    gave K1, K2 or K3 is then held against the plain version,
+    ``check_path_shapes``): ``examples/torch_ptq_pipeline.py`` (FlexRound
+    W4A8, QDrop, W8 layer 0, ``BENCH_ITERS``; then RTN), whose FlexRound
+    model must predict close to the fp model (the mean KL divergence of
+    the next-token distributions over the evaluation batches at most
+    ``BENCH_KL_MAX`` and ``BENCH_KL_RATIO`` of RTN's; the perplexities are
+    logged with whether FlexRound's is below RTN's: the bench LM predicts
+    little better than a uniform guess, so its perplexities move by less
+    than the methods' differences in fidelity, either way), and which
+    must launch K1 (the W4 body), K3
+    (layer 0 in the block-wise stream, whose sites are named
+    ``layers.0.<site>`` as its activation states are keyed) and K2 (layer
+    0 in the evaluation: the scanned forward names its sites
+    ``layers.<site>``, so deploy mode finds no activation state and serves
+    W8A16 there, as the reference's does; checked by name and count);
+    ``examples/torch_serve_quantized.py`` (bf16, int8 and int4 weight-only
+    FlexRound at ``BENCH_SERVE_ITERS``), which must launch K2 (int8) and K1
+    (int4). Then each kernel-served evaluation is
+    re-run with the plain versions (``backend="torch"``): the FlexRound
+    export's logits over the evaluation batches, and each quantized
+    variant's decode teacher-forced along the kernels' tokens, within
+    ``BENCH_TOL`` relative L2."""
+    from repro_torch.core import QuantCtx
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bench_lm
+    from repro_torch.optim.adam import tree_leaves
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_ptq_pipeline
+    import torch_serve_quantized
+
+    cache = RUNS_DIR / "bench_lm"
+    shutil.rmtree(cache, ignore_errors=True)
+    losses = {}
+
+    def keep(step, loss):
+        if step in BENCH_LOG_STEPS:
+            losses[step] = loss  # a device tensor: read after the loop
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, params = bench_lm.get_trained_lm(bench_lm.TRAIN_STEPS,
+                                            cache_dir=str(cache), log=keep)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = {k: float(v) for k, v in losses.items()}
+    log(f"bench LM: {bench_lm.TRAIN_STEPS} Adam steps in {train_s:.2f}s, "
+        "loss " + ", ".join(f"step {k} {v:.4f}" for k, v in losses.items()))
+    if sorted(losses) != list(BENCH_LOG_STEPS) or not all(
+            math.isfinite(v) for v in losses.values()) or \
+            not losses[BENCH_LOG_STEPS[-1]] < losses[0]:
+        fail(f"bench LM: training losses {losses}")
+    args = ["--cache-dir", str(cache)]
+
+    window = PathWindow(torch)
+    window.start()  # the bench-lm path's run starts here
+    t0 = time.perf_counter()
+    ptq = torch_ptq_pipeline.main(args + [
+        "--iters", str(BENCH_ITERS), "--ckpt", str(RUNS_DIR / "bench_ckpt")])
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    served = torch_serve_quantized.main(args + [
+        "--iters", str(BENCH_SERVE_ITERS), "--backend", "kernel"])
+    counts = window.stop()  # ... and ends here
+    serve_s = time.perf_counter() - t0
+    serve_counts = {k: counts[k] - ptq_counts[k] for k in counts}
+    rows.extend(check_path_shapes(torch, window, rows, "bench-lm"))
+    fp, flex, rtn = ptq["fp"], ptq["quantized"], ptq["rtn"]
+    log(f"bench LM: perplexity fp {fp:.4f}, FlexRound {flex:.4f}, RTN "
+        f"{rtn:.4f}; the PTQ example took {ptq_s:.2f}s, launches "
+        f"{_nonzero(ptq_counts)}; the serving example {serve_s:.2f}s, "
+        f"launches {_nonzero(serve_counts)}")
+    model, qparams, astates = ptq["model"], ptq["qparams"], ptq["astates"]
+    batches = bench_lm.eval_batches()
+    ctx = {b: QuantCtx(mode="deploy", recipe=ptq["recipe"], astates=astates,
+                       backend=b) for b in ("kernel", "torch")}
+    lk = _bench_eval_logits(torch, model, qparams, ctx["kernel"], batches)
+    l_fp = _bench_eval_logits(torch, model, params, QuantCtx(mode="fp"),
+                              batches)
+    l_rtn = _bench_eval_logits(torch, model, ptq["rtn_qparams"], QuantCtx(
+        mode="deploy", recipe=ptq["rtn_recipe"],
+        astates=ptq["rtn_astates"]), batches)
+    kl = {"flexround": _kl(torch, l_fp, lk), "rtn": _kl(torch, l_fp, l_rtn)}
+    dist = {"flexround": _rel_l2(lk, l_fp), "rtn": _rel_l2(l_rtn, l_fp)}
+    log(f"bench LM: against the fp model, mean KL FlexRound "
+        f"{kl['flexround']:.4e}, RTN {kl['rtn']:.4e}; logits relative L2 "
+        f"FlexRound {dist['flexround']:.4e}, RTN {dist['rtn']:.4e}; "
+        "FlexRound's "
+        f"perplexity is {'below' if flex < rtn else 'not below'} RTN's "
+        f"({flex - rtn:+.4f}), RTN's {'below' if rtn < fp else 'not below'} "
+        f"fp's ({rtn - fp:+.4f})")
+    if not all(math.isfinite(v) for v in (fp, flex, rtn)) or \
+            not kl["flexround"] <= BENCH_KL_MAX or \
+            not kl["flexround"] <= BENCH_KL_RATIO * kl["rtn"]:
+        fail(f"bench LM: FlexRound's KL to fp {kl['flexround']} (at most "
+             f"{BENCH_KL_MAX} and {BENCH_KL_RATIO} x RTN's {kl['rtn']}); "
+             f"perplexity fp {fp}, FlexRound {flex}, RTN {rtn}")
+    capture = QuantCtx(mode="capture")
+    with torch.no_grad():
+        model.backbone(params, batches[0]["tokens"][:1].to(DEV), capture)
+    matched = sorted(set(capture.records) & set(astates))
+    n0 = sum(isinstance(v, QTensor) for v in tree_leaves(qparams["layers"][0]))
+    log(f"bench LM: {len(astates)} activation states keyed like "
+        f"{sorted(astates)[:2]}, the evaluation's sites named like "
+        f"{sorted(capture.records)[:2]}: {len(matched)} matched, so the "
+        f"evaluation serves layer 0's {n0} W8 sites as W8A16 (K2, "
+        f"{ptq_counts['dequant_matmul_w8']} launches over {len(batches)} "
+        f"batches) and K3 ran only in the block-wise stream "
+        f"({ptq_counts['qmatmul_int8']} launches)")
+    if ptq_counts["dequant_matmul_w4"] == 0 or matched or \
+            ptq_counts["dequant_matmul_w8"] != n0 * len(batches) or \
+            ptq_counts["qmatmul_int8"] != n0:
+        fail(f"bench LM: the PTQ example's launches {_nonzero(ptq_counts)} "
+             f"(matched activation states {matched}, {n0} sites in layer 0)")
+    if serve_counts["dequant_matmul_w4"] == 0 or \
+            serve_counts["dequant_matmul_w8"] == 0:
+        fail("bench LM: serving did not launch K1 and K2: "
+             f"{_nonzero(serve_counts)}")
+
+    lt = _bench_eval_logits(torch, model, qparams, ctx["torch"], batches)
+    rel = {"flexround_eval": _rel_l2(lk, lt)}
+    reqs = torch_serve_quantized.prompts(8, bench_lm.BENCH_CFG.vocab)
+    for tag in ("int8", "int4"):
+        res = served[tag]
+        tok, logits = {}, {}
+        for b in ("kernel", "torch"):
+            eng = torch_serve_quantized.ServingEngine(model, res["params"],
+                                                      backend=b)
+            tok[b], logits[b] = eng.generate(reqs, res["tokens"].shape[1],
+                                             forced=res["tokens"])
+        if not torch.equal(tok["kernel"], res["tokens"]):
+            fail(f"bench LM: {tag}'s kernel re-run changed its tokens")
+        rel[tag] = _rel_l2(logits["kernel"], logits["torch"])
+    log("bench LM: kernels against plain versions, logits relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (tolerance {BENCH_TOL})")
+    if not all(v <= BENCH_TOL for v in rel.values()):
+        fail(f"bench LM: kernels and plain versions disagree: {rel}")
+    serve = {tag: {k: v for k, v in r.items() if k in (
+        "tok_s", "weight_mib", "agreement")} for tag, r in served.items()}
+    shutil.rmtree(cache, ignore_errors=True)
+    return counts, {"train_s": train_s, "losses": losses, "ppl": {
+        "fp": fp, "flexround": flex, "rtn": rtn}, "ptq_s": ptq_s,
+        "kl_to_fp": kl, "rel_l2_to_fp": dist,
+        "serve_s": serve_s, "serve": serve, "ptq_launches": ptq_counts,
+        "serve_launches": serve_counts, "rel_l2": rel,
+        "astates_matched": len(matched)}
+
+
 # ---------------------------------------------------------------- dry run
 # (a): the production cells, full size, traced on fake process groups in
 # three child processes on the host (they need no card; more slow the
@@ -5378,10 +5592,19 @@ DRY_CELLS = (("smollm-135m", "train_4k", False), ("smollm-135m", "train_4k", Tru
              ("smollm-135m", "prefill_32k", True),
              ("smollm-135m", "decode_32k", False),
              ("smollm-135m", "decode_32k", True),
-             ("llama4-scout-17b-a16e", "train_4k", False))
+             ("llama4-scout-17b-a16e", "train_4k", False),
+             # deepseek-v3's smoke config on the (2, 4) debug mesh, train
+             # cells of B x S (bf16): the main loss's remainder chunk (8 x
+             # 41), the mtp loss's (8 x 64: 63 positions) and the small
+             # batch (4 x 64), which did not trace on a CUDA mesh before
+             # PR 32 (ROADMAP items 18 and 19)
+             ("deepseek-v3-671b", "debug:8x41", False),
+             ("deepseek-v3-671b", "debug:8x64", False),
+             ("deepseek-v3-671b", "debug:4x64", False))
 # three children of about equal work, the two prefill traces (the longest:
-# 348-490 s each on the card's host) apart
-DRY_GROUPS = ((2, 4, 5), (3, 0), (1, 6))
+# 348-490 s each on the card's host) apart; a deepseek debug cell each.
+# A child traces its cells in this order, one fake group a mesh size
+DRY_GROUPS = ((2, 4, 5, 7), (0, 3, 8), (6, 1, 9))
 DRY_WEIGHTS = "int8"
 # the children's files: beside RUNS_DIR, which the phases empty between them
 DRY_DIR = ROOT / "build" / "chip_smoke_dryrun"
@@ -5412,24 +5635,32 @@ T_START = time.perf_counter()
 
 def dryrun_child(out_path: str, cells) -> int:
     """One dry-run child: ``launch.dryrun.run_cell`` of each ``arch:shape:
-    multi_pod`` cell on the fake group of its mesh; the records and the
-    child's CPU seconds into ``out_path``."""
+    multi_pod`` cell on the fake group of its production mesh
+    (``run_debug_cell`` of a ``debug:BxS`` shape, on the debug mesh's);
+    the records and the child's CPU seconds into ``out_path``."""
     import os
     os.nice(19)  # the host's spare cycles: the phases on the card come first
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import mesh_layout
-    todo = [(a, s, m == "1") for a, s, m in (c.split(":") for c in cells)]
+    from repro_torch.launch.mesh import ranks_needed
+    todo = []  # (the fake group's ranks, the call that records the cell)
+    for c in cells:
+        arch, rest = c.split(":", 1)
+        shape, mp = rest.rsplit(":", 1)
+        if shape.startswith("debug:"):
+            b, sl = (int(v) for v in shape.split(":")[1].split("x"))
+            todo.append((ranks_needed("debug"), functools.partial(
+                dryrun.run_debug_cell, arch, b, sl)))
+        else:
+            todo.append((ranks_needed("production", multi_pod=mp == "1"),
+                         functools.partial(dryrun.run_cell, arch, shape,
+                                           multi_pod=mp == "1",
+                                           weights=DRY_WEIGHTS)))
     recs = []
-    for mp in (False, True):
-        mine = [c for c in todo if c[2] == mp]
-        if not mine:
-            continue
-        with dryrun.fake_world(math.prod(
-                mesh_layout("production", multi_pod=mp)[0])):
-            for arch, shape, _ in mine:
-                recs.append(dryrun.run_cell(arch, shape, multi_pod=mp,
-                                            weights=DRY_WEIGHTS))
+    for n in dict.fromkeys(n for n, _ in todo):
+        with dryrun.fake_world(n):
+            for _, record in (t for t in todo if t[0] == n):
+                recs.append(record())
                 Path(out_path).write_text(json.dumps(
                     {"records": recs, "cpu_s": time.process_time()}))
     return 0
@@ -6125,6 +6356,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    bench_counts, bench = bench_lm_phase(torch, np, rows)
+    log(f"bench LM phase: {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     cells_counts, cells = cells_phase(torch, np, rows)
     log(f"cells phase: {time.perf_counter() - t0:.1f}s")
     gc.collect()
@@ -6150,6 +6387,7 @@ def main() -> int:
                    "mamba2-130m-trained": mb_counts[name],
                    "recurrentgemma-2b-trained": rg_counts[name],
                    "flexround_fake_quant": k4_counts[name],
+                   "bench-lm": bench_counts[name],
                    "cells": cells_counts[name],
                    "smollm-135m-sharded": sharded_counts[name]}
         shape = ({"M": timed["M"], "N": timed["N"], "w": timed["x"]}
@@ -6183,7 +6421,8 @@ def main() -> int:
          "olmo_path": olmo, "moe_path": moe_path, "qwen_path": qwen_path,
          "deepseek_path": ds_path, "whisper_path": wh_path,
          "mamba_path": mb_path, "recurrentgemma_path": rg_path,
-         "training": training, "loss": loss, "cells": cells,
+         "training": training, "loss": loss, "bench_lm": bench,
+         "cells": cells,
          "sharded": sharded, "dryrun": dry}, indent=1))
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -54,9 +55,10 @@ from torch.testing._internal.distributed import fake_pg
 
 from repro_torch.analysis.memcheck import graph_memory
 from repro_torch.configs import (ARCH_IDS, SHAPE_IDS, cell_applicable,
-                                 get_config, get_shape)
+                                 get_config, get_shape, get_smoke_config)
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.launch.mesh import make_production_mesh, mesh_layout
+from repro_torch.launch.mesh import (make_debug_mesh, make_production_mesh,
+                                     mesh_layout)
 from repro_torch.launch.sharding import (distribute, from_local_tree,
                                          to_local_tree)
 from repro_torch.launch.steps import build_cell
@@ -178,12 +180,32 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     cid = cell_id(arch, shape_name, multi_pod, weights, tag)
     if not ok:
         return {"cell": cid, "status": "skipped", "reason": why}
+    return _recorded(cid, verbose, lambda: cell_record(
+        cfg, shape, make_production_mesh(multi_pod=multi_pod,
+                                         device_type=mesh_device()),
+        cid, weights=weights, mode=mode, microbatch=microbatch, kv=kv))
+
+
+def run_debug_cell(arch: str, batch: int, seq: int, *,
+                   verbose: bool = True) -> dict:
+    """The record of ``arch``'s smoke config as a bf16 train cell of
+    ``batch`` x ``seq`` (``train_4k`` cut to that size) on the (2, 4) debug
+    mesh of ``mesh_device()``; the fake group of its 8 ranks must be
+    running. Its id is ``<arch>|debug:<batch>x<seq>``; an error is recorded
+    as ``run_cell`` records it."""
+    cid = f"{arch}|debug:{batch}x{seq}"
+    shape = dataclasses.replace(get_shape("train_4k"), seq_len=seq,
+                                global_batch=batch)
+    return _recorded(cid, verbose, lambda: cell_record(
+        get_smoke_config(arch), shape,
+        make_debug_mesh(device_type=mesh_device()), cid, weights="bf16"))
+
+
+def _recorded(cid: str, verbose: bool, record: Callable[[], dict]) -> dict:
+    """``record()``, or the ``error`` record of what it raised."""
     sw = Stopwatch()
     try:
-        mesh = make_production_mesh(multi_pod=multi_pod,
-                                    device_type=mesh_device())
-        rec = cell_record(cfg, shape, mesh, cid, weights=weights, mode=mode,
-                          microbatch=microbatch, kv=kv)
+        rec = record()
         if verbose:
             a, m = rec["analysis"], rec["memory"]
             print(f"[OK ] {cid}  trace={rec['trace_s']}s  "

@@ -189,29 +189,42 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
                         logit_scale: float = 1.0) -> torch.Tensor:
     """Mean next-token CE without materializing (B, S, V) logits.
 
-    Loops over sequence chunks of ``chunk`` positions (a remainder becomes
-    one extra chunk, padded, with mask 0); each chunk is recomputed in the
-    backward pass (``torch.utils.checkpoint``), so peak memory is
-    O(B * chunk * V) instead of O(B * S * V)."""
+    Loops over sequence chunks of ``chunk`` positions; each chunk is
+    recomputed in the backward pass (``torch.utils.checkpoint``), so peak
+    memory is O(B * chunk * V) instead of O(B * S * V). A remainder becomes
+    one extra chunk: on a plain tensor padded to ``chunk`` with mask 0, as
+    the reference's ``jnp.pad`` (the same reduction, so the same bits); on a
+    DTensor sliced to its own shorter length, because DTensor's
+    redistribution planner fails on the pad of a sharded tensor (torch 2.11
+    on a CUDA mesh) and the padded rows add only zeros."""
     B, S, D = x.shape
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        # partial sums (the mtp layer's output, which no norm reduces)
+        # are summed first: sliced into chunks, DTensor would shard them
+        # over the sequence, a placement the logits' product refuses
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
     w_out = unshard_dp(w_out)
     chunk = min(chunk, S)
     n_chunks = S // chunk
     rem = S - n_chunks * chunk
     mask = (torch.ones((B, S), dtype=torch.float32, device=x.device)
             if mask is None else mask.float())
-    if rem:  # fold the remainder into one extra masked chunk via padding
+    bounds = [(c * chunk, (c + 1) * chunk) for c in range(n_chunks)]
+    if rem and is_dtensor(x):
+        bounds.append((S - rem, S))
+    elif rem:  # fold the remainder into one extra masked chunk via padding
         pad = chunk - rem
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
-        n_chunks += 1
+        bounds.append((S - rem, S - rem + chunk))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        l, n = checkpoint(_chunk_loss, x[:, sl], labels[:, sl].long(),
-                          mask[:, sl], w_out, logit_scale,
+    for lo, hi in bounds:
+        l, n = checkpoint(_chunk_loss, x[:, lo:hi], labels[:, lo:hi].long(),
+                          mask[:, lo:hi], w_out, logit_scale,
                           use_reentrant=False)
         tot = tot + l
         cnt = cnt + n
@@ -219,6 +232,30 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
 
 
 # ------------------------------------------------------------ placements
+def pad(x: torch.Tensor, widths, value: float = 0.0) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)`` (constant mode). A DTensor is
+    padded shard by shard: DTensor's own pad fails in its redistribution
+    planner on a CUDA mesh (torch 2.11), so the padded dims are made whole
+    on every rank and partial sums are summed first, then each rank pads
+    its piece."""
+    if not is_dtensor(x):
+        return F.pad(x, widths, value=value)
+    from torch.distributed.tensor import DTensor, Replicate
+    dims = {x.dim() - 1 - i // 2 for i, n in enumerate(widths) if n}
+    pl = tuple(Replicate() if p.is_partial() or (p.is_shard() and
+                                                 p.dim in dims) else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    shape = list(x.shape)
+    for i, n in enumerate(widths):
+        shape[x.dim() - 1 - i // 2] += n
+    local = F.pad(x.to_local(), widths, value=value)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, x.device_mesh, pl,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
     """Redistribute a DTensor to the placements ``axes`` name on the
     ambient mesh (the reference's ``with_sharding_constraint`` hint).
@@ -255,6 +292,33 @@ def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
         # vocab-parallel embedding's output)
         y = y.redistribute(mesh, pl)
     return y
+
+
+class _KeepPlacement(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.spec = (x.device_mesh, x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        g = g.redistribute(*ctx.spec)
+        return DTensor.from_local(g.to_local().contiguous(), *ctx.spec,
+                                  shape=g.shape, stride=g.stride())
+
+
+def keep_placement(x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose gradient comes back to ``x``'s own placements
+    (contiguous on each rank) before it goes on. A weight's gradient
+    product meets its activation's gradient there, where the layers above
+    may have handed it another placement (a norm's backward may shard the
+    sequence), which the product then sees flattened and strided: DTensor's
+    matmul rule refuses that. The identity on a plain tensor or with no
+    ambient mesh."""
+    if get_ambient_mesh() is None or not is_dtensor(x):
+        return x
+    return _KeepPlacement.apply(x)
 
 
 def split_heads(x: torch.Tensor, n_heads: int,

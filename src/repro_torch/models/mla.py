@@ -35,7 +35,7 @@ def mla_params(gen: torch.Generator, cfg, dtype, device) -> dict:
 def _q_proj(p, x, cfg, ctx, name, sin, cos):
     B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = ctx.linear(f"{name}.wq_a", x, p["wq_a"])
+    cq = common.keep_placement(ctx.linear(f"{name}.wq_a", x, p["wq_a"]))
     cq = common.rmsnorm(cq, p["q_norm"]["scale"])
     q = ctx.linear(f"{name}.wq_b", cq, p["wq_b"]).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]

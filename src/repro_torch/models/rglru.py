@@ -86,10 +86,10 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     S = a.shape[1]
     d = 1
     while d < S:
-        b_prev = F.pad(b[:, :-d], (0, 0, d, 0))  # b = 0 before the start
+        b_prev = common.pad(b[:, :-d], (0, 0, d, 0))  # b = 0 before the start
         b = a * b_prev + b
         if 2 * d < S:  # the last level needs no new a
-            a = a * F.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+            a = a * common.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
         d *= 2
     return b
 
@@ -152,7 +152,7 @@ def _causal_conv(x, w, bias, init=None):
     without it)."""
     K = w.shape[0]
     if init is None:
-        ext = F.pad(x, (0, 0, K - 1, 0))
+        ext = common.pad(x, (0, 0, K - 1, 0))
     else:
         ext = torch.cat([init.to(x.dtype), x], dim=1)
     out = sum(ext[:, i:i + x.shape[1], :] * w[i] for i in range(K))

@@ -116,7 +116,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv along the sequence: xbc (B, S, C), w (K, C),
     in xbc's dtype (not a quantized site)."""
     K = w.shape[0]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    pad = common.pad(xbc, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(K))
     return out + bias
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.context import QuantCtx
 from repro_torch.core.reconstruct import BlockHandle, Site
@@ -228,10 +227,10 @@ class TransformerLM:
         labels = batch["labels"]
         if pe is not None:
             P = pe.shape[1]
-            mask = F.pad(mask.float() if mask is not None else
-                         torch.ones(labels.shape, dtype=torch.float32,
-                                    device=x.device), (P, 0))
-            labels = F.pad(labels, (P, 0))
+            mask = common.pad(mask.float() if mask is not None else
+                              torch.ones(labels.shape, dtype=torch.float32,
+                                         device=x.device), (P, 0))
+            labels = common.pad(labels, (P, 0))
         ce = common.fused_cross_entropy(x, self.lm_head(params), labels, mask,
                                         cfg.xent_chunk, cfg.logit_mult)
         metrics = {"ce": ce, "aux": aux}
@@ -251,7 +250,7 @@ class TransformerLM:
                                        cfg.emb_mult)
         # align: h[:, :-1] with the embeddings of tokens[:, 1:]
         cat = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1)
-        z = ctx.linear("mtp.proj", cat, m["proj"])
+        z = common.keep_placement(ctx.linear("mtp.proj", cat, m["proj"]))
         z = common.rmsnorm(z, m["norm"]["scale"])
         B, S, _ = z.shape
         sin, cos = self._rope(torch.arange(S, device=z.device)[None].expand(B, S))

@@ -48,6 +48,13 @@ the (2, 2, 2) half of the matrix.
   reference's HLO), its dp gradient reductions are held to the
   reference's HLO with named bytes, and a plain run's groups, output and
   aux loss are unchanged bit for bit.
+- **A small batch** (ROADMAP item 18). deepseek-v3 at 4 x 64, 2 rows a
+  data rank: the cell traces, its dp gradient reductions are held to the
+  reference's HLO of the same cell with named bytes, and a plain run
+  passes only plain tensors through ``keep_placement``, unchanged.
+- **A CUDA mesh** (item 19, ``requires_cuda``): deepseek-v3's 8 x 41, 8 x
+  64 and 4 x 64 train cells, and mamba2's, recurrentgemma's and
+  phi-3-vision's at 8 x 64, trace on a CUDA mesh of a fake group.
 - **MoE placements.** The MoE hints give the expert buffers the expert
   weights' placement on E: EP over ``model`` on (2, 4), where E = 4 does
   not divide data x model, full EP over (data, model) on (2, 2, 2).
@@ -130,10 +137,14 @@ train = dataclasses.replace(get_shape("train_4k"), seq_len=64, global_batch=8)
 dec = dataclasses.replace(get_shape("decode_32k"), seq_len=64, global_batch=8)
 uneven = dataclasses.replace(get_shape("train_4k"), seq_len=41,
                              global_batch=8)
+small = dataclasses.replace(get_shape("train_4k"), seq_len=64,
+                            global_batch=4)
 mesh = make_debug_mesh()
 out = {}
 for key, arch, shp, w, mode in (
         ("deepseek-v3-671b|train|dp", "deepseek-v3-671b", uneven, "bf16",
+         "dp"),
+        ("deepseek-v3-671b|small|dp", "deepseek-v3-671b", small, "bf16",
          "dp"),
         ("smollm-135m|train", "smollm-135m", train, "bf16", None),
         ("smollm-135m|decode", "smollm-135m", dec, "int8", None),
@@ -356,6 +367,142 @@ def test_uneven_moe_dp_all_reduce_bytes_match_reference(world, reference):
     assert abs(grads + named - ref["coll"]["all-reduce"]) <= \
         0.01 * ref["coll"]["all-reduce"]
     assert _gathers(gm, (8, 40, 64)) == ref["gathers"].count("f32[8,40,64]")
+
+
+# ------------------------------------------- a small batch (item 18)
+SMALL = dataclasses.replace(get_shape("train_4k"), seq_len=64, global_batch=4)
+
+
+def test_small_batch_deepseek_train_traces(world):
+    """deepseek-v3's smoke config at 4 x 64 on the (2, 4) mesh, 2 rows a
+    data rank. Its backward used to fail in the mtp layer: the RMSNorm
+    after ``wq_a`` (and after ``mtp.proj``) hands its input's gradient a
+    sequence sharded over ``model``, which the weight's gradient product
+    sees flattened and strided (``S(0)[0]_S(0, 2)[1]``), a placement
+    DTensor's matmul rule refuses. ``common.keep_placement`` brings each
+    gradient back to its activation's placement first; in ``dp`` mode the
+    mtp layer's output, a partial sum over ``model`` that no norm reduces,
+    is summed before the cross entropy slices it into chunks (the dp cell
+    traces in the test below)."""
+    rec = dryrun.run_debug_cell("deepseek-v3-671b", SMALL.global_batch,
+                                SMALL.seq_len)
+    assert rec["status"] == "ok", rec["error"]
+    check_record(rec)
+
+
+def test_small_batch_dp_all_reduce_bytes_beside_reference(world, reference):
+    """The 4 x 64 cell in dp mode beside the reference's HLO of the same
+    cell. Its mtp layer routes 4 x 63 tokens in whole groups on each data
+    rank (no gather), so the all-reduces whose result has a parameter's
+    shape are every parameter's float32 gradient once; the rest are
+    activations' partial sums over ``model`` (the rows (2, 64, 64) and
+    (2, 63, 64)) and scalars. Named bytes, as in the 8 x 41 cell: the
+    reference reduces the output head's gradient once per chunk of the two
+    cross entropies (2 + 2 chunks of 32) and the embedding's gradient
+    twice; with them the port is within 1% of the reference."""
+    from repro_torch.roofline.collectives import kind_of
+    cfg = get_smoke_config("deepseek-v3-671b")
+    gm, _ = dryrun.trace_cell(cfg, SMALL, debug_mesh(False),
+                              weights="bf16", mode="dp")
+    params = steps.build_cell(cfg, SMALL, debug_mesh(False),
+                              mode="dp").args[0]["params"]
+    shapes = {tuple(t.shape) for t in tree_leaves(params)}
+    grads = rest = 0
+    for n in gm.graph.nodes:
+        if kind_of(n) == "all-reduce":
+            v = n.meta["val"]
+            b = v.numel() * v.element_size()
+            if tuple(v.shape) in shapes:
+                grads += b
+            else:
+                rest += b
+                assert v.dim() == 1 or tuple(v.shape) in {
+                    (2, 64, 64), (2, 63, 64)}, tuple(v.shape)
+    size = 4 * sum(math.prod(t.shape) for t in tree_leaves(params))
+    assert grads == size
+    head = 4 * cfg.d_model * cfg.vocab
+    chunks = sum(math.ceil(s / min(cfg.xent_chunk, s))
+                 for s in (SMALL.seq_len, SMALL.seq_len - 1))
+    named = head * (chunks - 1) + 4 * math.prod(params["embed"].shape)
+    ref = reference["deepseek-v3-671b|small|dp"]
+    port = collective_bytes(gm)
+    print("deepseek-v3 4 x 64 dp train bytes per device (port, reference):")
+    for k in port:
+        print(f"  {k:20s} {port[k]:>12d} {int(ref['coll'][k]):>12d}")
+    print(f"  gradient all-reduce {grads}, activations and scalars {rest}, "
+          f"named {named}")
+    assert port["all-reduce"] == grads + rest
+    assert abs(grads + named - ref["coll"]["all-reduce"]) <= \
+        0.01 * ref["coll"]["all-reduce"]
+
+
+def test_small_batch_plain_run_unchanged(monkeypatch):
+    """On plain tensors ``keep_placement`` is the identity (the very
+    tensor it is given), so the 4 x 64 cell's plain loss and gradients are
+    those of a run without it, bit for bit; every call it gets there is a
+    plain tensor (the cross entropy's plain path is held bit for bit to
+    the padded code in ``test_torch_loss.py``)."""
+    import torch
+
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models import common
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("deepseek-v3-671b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 65), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    seen = []
+    real = common.keep_placement
+
+    def spy(x):
+        y = real(x)
+        seen.append(y is x)
+        return y
+
+    monkeypatch.setattr(common, "keep_placement", spy)
+    loss, _, grads = _loss_and_grads(model, params, batch)
+    monkeypatch.setattr(common, "keep_placement", lambda x: x)
+    loss2, _, grads2 = _loss_and_grads(model, params, batch)
+    assert seen and all(seen)  # 3 MLA layers' wq_a and the mtp projection
+    assert len(seen) == 4
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+CUDA_CELLS = {
+    "deepseek-v3-671b, main loss, 8 x 41": ("deepseek-v3-671b", UNEVEN),
+    "deepseek-v3-671b, mtp loss, 8 x 64": ("deepseek-v3-671b", TRAIN),
+    "deepseek-v3-671b, small batch, 4 x 64": ("deepseek-v3-671b", SMALL),
+    "mamba2-130m, causal conv": ("mamba2-130m", TRAIN),
+    "recurrentgemma-2b, conv and scan": ("recurrentgemma-2b", TRAIN),
+    "phi-3-vision-4.2b, patch labels": ("phi-3-vision-4.2b", TRAIN)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cell", CUDA_CELLS)
+def test_train_cells_trace_on_a_cuda_mesh(world, cell):
+    """On a PyTorch with CUDA the dry run's meshes are CUDA meshes
+    (``dryrun.mesh_device``; fake CUDA tensors), where DTensor plans other
+    redistributions than on a CPU mesh. There (torch 2.11) ``F.pad`` of a
+    DTensor failed in DTensor's redistribution planner: the cross
+    entropy's padded remainder chunk (deepseek's main loss at 8 x 41, its
+    mtp loss over 63 positions), mamba2's and recurrentgemma's causal conv
+    and scan pads and the vlm's label pad. With the remainder sliced and
+    the other pads shard by shard (``common.pad``) these train cells trace
+    with ``status: ok``."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA mesh's fake tensors need "
+                    "a PyTorch built with CUDA; chip_smoke.py's dry-run "
+                    "children trace deepseek's cells on the card")
+    assert dryrun.mesh_device() == "cuda"
+    arch, shape = CUDA_CELLS[cell]
+    rec = dryrun.run_debug_cell(arch, shape.global_batch, shape.seq_len)
+    assert rec["status"] == "ok", rec["error"]
+    assert rec["mesh_device"] == "cuda"
+    check_record(rec)
 
 
 def test_plain_moe_groups_unchanged():

@@ -63,7 +63,7 @@ NEW_MODULES = ("repro_torch.models.moe", "repro_torch.kernels.flexround_quant",
                "repro_torch.roofline.report",
                "repro_torch.launch.dryrun",
                "repro_torch.roofline.collectives",
-               "repro_torch.core.dist")
+               "repro_torch.core.dist", "repro_torch.launch.bench_lm")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -80,6 +80,7 @@ _EXAMPLES_PROBE = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import torch_quickstart, torch_train_small
+import torch_ptq_pipeline, torch_serve_quantized
 import repro_torch.serve.kv
 print('engine' if 'repro_torch.serve.engine' in sys.modules else 'kv only')
 from repro_torch.serve import ServeEngine, serve_capability
@@ -102,8 +103,10 @@ def test_examples_and_serve_exports_pull_in_no_jax():
 
 
 def test_examples_default_to_cuda(monkeypatch, tmp_path):
-    """Both examples run on the card unless ``--device cpu`` is passed:
-    without one they raise before any work (no checkpoint written)."""
+    """The examples run on the card unless ``--device cpu`` is passed:
+    without one they raise before any work (no checkpoint written, no
+    bench LM trained or cached), and so does ``bench_lm.get_trained_lm``
+    without a device."""
     import os
     monkeypatch.syspath_prepend(os.path.join(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))), "examples"))
@@ -115,6 +118,17 @@ def test_examples_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_train_small.main(["--steps", "1", "--ckpt",
                                 str(tmp_path / "ck")])
+    import torch_ptq_pipeline
+    import torch_serve_quantized
+
+    from repro_torch.launch import bench_lm
+    cache = ["--cache-dir", str(tmp_path / "cache")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_ptq_pipeline.main(cache + ["--ckpt", str(tmp_path / "ptq")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_serve_quantized.main(cache)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_lm.get_trained_lm(1, cache_dir=str(tmp_path / "cache"))
     assert not list(tmp_path.iterdir())
 
 
